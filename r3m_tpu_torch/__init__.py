@@ -1,0 +1,143 @@
+"""r3m_tpu_torch — R3M pretrained visual representations on PyTorch and CUDA.
+
+The PyTorch port of `r3m_tpu`, for an NVIDIA H100 (sm_90a). This slice serves: the
+reference's public API, `load_r3m(modelid)` / `load_r3m_reproduce(modelid)` /
+`load_r3m_from_files(path)`, returns an `R3MEncoder` (alias `R3M`) that maps NCHW images
+in [0, 255] to embeddings. Reference ``model.pt`` files load natively. The ResNet stem
+pool and the ViT attention run hand-written CUDA kernels (``r3m_tpu_torch/csrc``), built
+at first use.
+
+Every entry point takes ``precision=`` ("parity" or "fast") and ``device=``; the device
+is ``"cuda"`` unless the caller names another, and with no card a CUDA request raises.
+This package imports neither `jax` nor `r3m_tpu`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+from r3m_tpu_torch.models.r3m import R3MConfig, R3MEncoder, r3m_embed  # noqa: F401
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "R3M",
+    "R3MConfig",
+    "R3MEncoder",
+    "VALID_ARGS",
+    "cleanup_config",
+    "load_r3m",
+    "load_r3m_from_files",
+    "load_r3m_reproduce",
+    "r3m_embed",
+]
+
+# Constructor args accepted from checkpoint configs (r3m/__init__.py:15).
+VALID_ARGS = [
+    "_target_",
+    "device",
+    "lr",
+    "hidden_dim",
+    "size",
+    "l2weight",
+    "l1weight",
+    "langweight",
+    "tcnweight",
+    "l2dist",
+    "bs",
+]
+
+# The reference exports the model class as `R3M`.
+R3M = R3MEncoder
+
+
+def cleanup_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Sanitize a checkpoint's config node (r3m/__init__.py:21-33).
+
+    Filters to VALID_ARGS and forces langweight=0 — downstream use is as a visual
+    representation, so the language head is dropped.
+    """
+    agent = dict(cfg.get("agent", cfg))
+    agent = {k: v for k, v in agent.items() if k in VALID_ARGS}
+    agent["langweight"] = 0
+    agent.pop("_target_", None)
+    agent.pop("device", None)
+    return agent
+
+
+def _config_from_yaml(configpath: str) -> R3MConfig:
+    """`R3MConfig` from a checkpoint folder's training config.
+
+    Real folders ship the TRAINING config, whose agent node holds OmegaConf
+    interpolations ('lr: ${lr}'); they are resolved against the root config, and values
+    whose referent is absent are dropped, so no literal '${lr}' reaches R3MConfig.
+    """
+    import yaml
+
+    from r3m_tpu_torch.utils.config import _resolve, agent_to_r3m_config
+
+    with open(configpath) as f:
+        raw_cfg = yaml.safe_load(f) or {}
+    resolved: Dict[str, Any] = {}
+    for k, v in cleanup_config(raw_cfg).items():
+        try:
+            v = _resolve(v, raw_cfg)
+        except (KeyError, ValueError):
+            continue
+        if isinstance(v, str) and "${" in v:
+            continue  # unsupported resolver form (e.g. ${oc.env:...})
+        resolved[k] = v
+    return agent_to_r3m_config(resolved)
+
+
+def load_r3m_from_files(
+    modelpath: str, configpath: str = None, precision: str = "parity", device=None
+) -> R3MEncoder:
+    """Load from explicit artifact paths (offline hosts, local copies).
+
+    `modelpath` is a reference ``model.pt``/``snapshot.pt``; `configpath`, if given, its
+    ``config.yaml`` (which needs pyyaml). The weights decide the backbone and, for a ViT,
+    the crop size, whatever the config says.
+    """
+    from r3m_tpu_torch.checkpoint import load_convnet
+    from r3m_tpu_torch.models.r3m import resolve_device
+
+    if modelpath.endswith(".npz"):
+        raise NotImplementedError(
+            "native .npz snapshots (load_r3m_from_snapshot) are not ported yet; "
+            "load a reference-format model.pt"
+        )
+    device = resolve_device(device)  # fail before reading hundreds of MB
+    cfg = _config_from_yaml(configpath) if configpath is not None else R3MConfig()
+    sd, size, image_size = load_convnet(modelpath)
+    cfg = dataclasses.replace(
+        cfg,
+        size=size,
+        langweight=0.0,
+        image_size=image_size if image_size is not None else cfg.image_size,
+    )
+    return R3MEncoder(cfg, sd, precision=precision, device=device)
+
+
+def load_r3m(modelid: str, precision: str = "parity", device=None) -> R3MEncoder:
+    """Load a pretrained R3M visual encoder ("resnet50"/"resnet34"/"resnet18").
+
+    Same registry and ``$R3M_HOME`` (default ``~/.r3m``) cache layout as the reference
+    (r3m/__init__.py:44-75). The returned module takes NCHW images in [0, 255] and
+    returns [B, out_dim] embeddings. `precision="parity"` (default) serves f32 with TF32
+    off; `"fast"` serves the same folded weights in bfloat16.
+    """
+    from r3m_tpu_torch.fetch import ensure_artifacts
+
+    modelpath, configpath = ensure_artifacts(modelid, reproduce=False)
+    return load_r3m_from_files(modelpath, configpath, precision=precision, device=device)
+
+
+def load_r3m_reproduce(modelid: str, precision: str = "parity", device=None) -> R3MEncoder:
+    """Load paper-reproduction checkpoints ("r3m"/"r3m_noaug"/"r3m_nol1"/"r3m_nolang")
+    — r3m/__init__.py:77-113, with its `modelif` typo fixed."""
+    from r3m_tpu_torch.fetch import ensure_artifacts
+
+    modelpath, configpath = ensure_artifacts(modelid, reproduce=True)
+    return load_r3m_from_files(modelpath, configpath, precision=precision, device=device)

@@ -1,0 +1,98 @@
+"""Where the port's serving time goes on the card: a torch.profiler breakdown.
+
+    python3 scripts/torch_serving_profile.py [--batch 256] [--requests 3] [--seed 0]
+
+For ResNet-50 and ViT-B/32 (seeded random weights, as chip_smoke.py makes them) in
+parity and fast precision: one warm-up request of uint8 frames at 224 px from host
+memory, then a profiled window of `--requests` requests. Prints, per cell, the wall time
+per request, the device's busy share of the window (the union of kernel intervals over
+the window), and the top device operations by self time. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def busy_ms(prof) -> float:
+    """Union of the device kernels' intervals, in ms."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    total, cur_s, cur_e = 0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3  # us -> ms
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from r3m_tpu_torch.models.r3m import R3MConfig, R3MEncoder
+
+    print(torch.cuda.get_device_name(0), flush=True)
+    rng = np.random.default_rng(args.seed)
+    frames = rng.integers(0, 256, (args.batch, 3, 224, 224), dtype=np.uint8)
+    for size, name in ((50, "resnet50"), (0, "vit_b32")):
+        torch.manual_seed(args.seed)
+        sd = R3MEncoder(R3MConfig(size=size), device="cpu").convnet.state_dict()
+        for precision in ("parity", "fast"):
+            enc = R3MEncoder(R3MConfig(size=size), sd, precision=precision)
+            enc(frames)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(args.requests):
+                    enc(frames)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = busy_ms(prof)
+            top = sorted(
+                (e for e in prof.key_averages() if e.self_device_time_total > 0),
+                key=lambda e: -e.self_device_time_total,
+            )[:8]
+            row = {
+                "cell": f"{name}/{precision}",
+                "batch": args.batch,
+                "ms_per_request": wall / args.requests,
+                "device_busy_share": busy / wall,
+                "top_device_ops_ms_per_request": [
+                    [e.key[:60], e.self_device_time_total / 1e3 / args.requests, e.count
+                     // args.requests]
+                    for e in top
+                ],
+            }
+            print(json.dumps(row), flush=True)
+            del enc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
