@@ -6,23 +6,39 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every kernel of ``r3m_tpu_torch/csrc`` from the checkout's sources;
-3. K1 (stem max-pool) against its plain PyTorch version at the ResNet stem's shape,
-   f32 and bf16, exact; times of the kernel, the plain version, ``F.max_pool2d`` and the
-   bound;
-4. K3 (fused attention) against its plain version at ViT-B/32 serving width, f32 and
-   bf16; the same four times, with SDPA as the library yardstick;
-5. ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
+3. each kernel against its plain PyTorch version on the card, at the shapes the serving
+   and training paths give it, f32 and bf16, with the times of the kernel, the plain
+   version and one library call, and the bound:
+   K1 (stem max-pool, and under grad its int8 argmax, on an input full of ties) and K2
+   (its backward) exact; K3 (fused attention) and K4 (its recompute-P backward) to a
+   stated atol, K4 also to a relative L2 error that tells whether it rounds where its
+   plain version does, and against autograd of K3's plain forward; under grad a CUDA call
+   carries a grad_fn and its backward is the kernel;
+4. ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
    reference ``model.pt``), parity and fast: a few requests of 256 frames at 224 px and
    one of 240x320 frames; shapes, finiteness, fast-vs-parity cosine, agreement with the
-   CPU path on a small input, and K1's launch count over the served requests;
-6. ViT-B/32 serving, the same, with K3's launch count;
-7. one JSON line with every kernel's numbers, then the result line.
+   CPU path on a small input, and K1's launches over the served requests;
+5. ViT-B/32 serving, the same, with K3's launches;
+6. the ResNet-50 pretraining step, bf16, 64 clips of 5 frames at 224 px on the device,
+   rctraj, language + TCN + L1/L2 losses, 3 negatives, Adam 1e-4, a frozen DistilBERT of
+   base geometry: warm-up steps, then timed steps on one repeated batch, each drawing
+   its crops and negatives from the state's generator. The loss is finite, the step
+   counts, K1 and K2 launch once a step, the BatchNorm statistics move, every trainable
+   parameter has a finite, non-zero gradient; train frames/s and peak device memory.
+   Then a few more steps with the crops and negatives held fixed: the loss falls;
+7. the ViT-B/32 pretraining step, the same, with 12 launches of K3 and of K4 a step;
+8. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card (TF32 off) and on
+   the CPU from the same state, batch, permutations and crops: loss and gradients agree;
+9. one JSON line with every kernel's numbers, then the result line.
 
-Uses no JAX: the port is checked against its own plain versions and its CPU path.
+Each path's launch counts are set to 0 just before it runs and read just after; the
+kernel checks of phase 3 are not counted. Uses no JAX: the port is checked against its
+own plain versions and its CPU path.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -35,12 +51,30 @@ import torch
 import torch.nn.functional as F
 
 SEED = 0
-BATCH = 256
-REQUESTS = 4
+SERVE_BATCH = 256
+SERVE_REQUESTS = 3
+TRAIN_CLIPS = 64
+FRAMES = 5
+TRAIN_BATCH = TRAIN_CLIPS * FRAMES
+LANG_LEN = 32
+WARMUP_STEPS = 2
+TIMED_STEPS = 10
+LEARN_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 without tensor cores
+# K3/K4 against their plain versions, which round where the kernels do and sum in
+# another order: f32 rounding, or a few bf16 steps of values of order 1.
 ATTENTION_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# K4 rounds P and dU to bf16 where its plain version does, so only an element in a few
+# thousand lands one rounding step apart: each gradient agrees to relative L2 error 5e-4
+# (without those two roundings it would be ~3e-3 away, which the max abs error alone
+# cannot tell from one rounding step of a value near 2).
+K4_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+# K4 against autograd of K3's plain forward, which keeps P and dU in f32: in bf16 the
+# kernel's two roundings add a few more steps.
+AUTOGRAD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 6e-2}
 DT_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+MAIN_ROW = "train_bf16"  # this slice's main path: the bf16 pretraining step
 
 
 def log(msg: str) -> None:
@@ -67,69 +101,184 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_pool(gen) -> dict:
-    from r3m_tpu_torch.ops.pool import maxpool_3x3s2, maxpool_3x3s2_reference
-
-    shape = (BATCH, 112, 112, 64)  # the ResNet stem after conv1, NHWC
-    rows = {}
-    for dt in (torch.float32, torch.bfloat16):
-        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
-        y = maxpool_3x3s2(x)
-        ref = maxpool_3x3s2_reference(x)
-        torch.cuda.synchronize()
-        if not torch.equal(y, ref):
-            raise AssertionError(f"K1 {dt}: kernel differs from its plain version")
-        err = (y.float() - ref.float()).abs().max().item()
-        nbytes = (x.numel() + y.numel()) * x.element_size()
-        bound, by = bound_ms(nbytes, 9 * y.numel(), dt)
-        x_nchw = x.permute(0, 3, 1, 2)  # channels_last NCHW view of the same memory
-        row = {
-            "max_abs_err": err,
-            "ms": time_ms(lambda: maxpool_3x3s2(x)),
-            "plain_ms": time_ms(lambda: maxpool_3x3s2_reference(x)),
-            "bound_ms": bound,
-            "bound_by": by,
-            "library_ms": time_ms(lambda: F.max_pool2d(x_nchw, 3, 2, 1)),
-        }
-        rows[DT_NAMES[dt]] = row
-        log(f"K1 maxpool {DT_NAMES[dt]} {list(shape)}: exact; {json.dumps(row)}")
-        del x, y, ref
-    return rows
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_attention(gen) -> dict:
-    from r3m_tpu_torch.ops.attention import fused_attention, fused_attention_reference
+def row(err, kernel, plain, bound, library) -> dict:
+    b, by = bound
+    return {"max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "bound_ms": b, "bound_by": by, "library_ms": time_ms(library)}
 
-    b, t, h, d = BATCH, 50, 12, 64  # ViT-B/32 at 224 px
-    rows = {}
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn((b, t, h * d), generator=gen, device="cuda").to(dt)
-                   for _ in range(3))
-        o = fused_attention(q, k, v, h)
-        ref = fused_attention_reference(q, k, v, h)
-        torch.cuda.synchronize()
-        err = (o.float() - ref.float()).abs().max().item()
-        atol = ATTENTION_ATOL[dt]
-        if not err <= atol:
-            raise AssertionError(f"K3 {dt}: max abs error {err} > {atol}")
-        nbytes = 4 * q.numel() * q.element_size()
-        bound, by = bound_ms(nbytes, 2 * b * h * 2 * t * t * d, dt)
-        qh, kh, vh = (x.view(b, t, h, d).transpose(1, 2) for x in (q, k, v))
-        lib = F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2).reshape(b, t, -1)
-        log(f"K3 {DT_NAMES[dt]}: max abs difference from SDPA (informative) "
-            f"{(o.float() - lib.float()).abs().max().item()}")
-        row = {
-            "max_abs_err": err,
-            "ms": time_ms(lambda: fused_attention(q, k, v, h)),
-            "plain_ms": time_ms(lambda: fused_attention_reference(q, k, v, h)),
-            "bound_ms": bound,
-            "bound_by": by,
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
-        }
-        rows[DT_NAMES[dt]] = row
-        log(f"K3 attention {DT_NAMES[dt]} {[b, t, h * d]} H={h}: atol {atol}; "
-            f"{json.dumps(row)}")
-    return rows
+
+def check_pool(gen) -> tuple:
+    """K1 at the serving shape (no argmax) and the training shape (with the argmax, on
+    an input full of ties), then K2 at the training shape; both exact."""
+    from r3m_tpu_torch.ops.pool import (
+        maxpool_3x3s2,
+        maxpool_3x3s2_bwd,
+        maxpool_3x3s2_bwd_reference,
+        maxpool_3x3s2_fwd,
+        maxpool_3x3s2_reference,
+    )
+
+    k1, k2 = {}, {}
+    for phase, batch in (("serve", SERVE_BATCH), ("train", TRAIN_BATCH)):
+        for dt in (torch.float32, torch.bfloat16):
+            name = f"{phase}_{DT_NAMES[dt]}"
+            shape = (batch, 112, 112, 64)  # the ResNet stem after conv1, NHWC
+            x = torch.randn(shape, generator=gen, device="cuda")
+            if phase == "train":  # relu(randn).round(): ties in most windows
+                x = x.clamp_min(0).round()
+            x = x.to(dt)
+            argmax = phase == "train"
+            y, idx = maxpool_3x3s2_fwd(x, argmax=argmax)
+            ref, ref_idx = maxpool_3x3s2_reference(x)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ref) or (argmax and not torch.equal(idx, ref_idx)):
+                raise AssertionError(f"K1 {name}: kernel differs from its plain version")
+            x_nchw = x.permute(0, 3, 1, 2)  # channels_last NCHW view of the same memory
+            outs = (y, idx) if argmax else (y,)
+            k1[name] = row(
+                (y.float() - ref.float()).abs().max().item(),
+                lambda: maxpool_3x3s2_fwd(x, argmax=argmax),
+                lambda: maxpool_3x3s2_reference(x),
+                bound_ms(nbytes(x, *outs), 9 * y.numel(), dt),
+                lambda: F.max_pool2d(x_nchw, 3, 2, 1, return_indices=argmax),
+            )
+            log(f"K1 maxpool {name} {list(shape)}{' +argmax, ties' if argmax else ''}: "
+                f"exact; {json.dumps(k1[name])}")
+            if phase != "train":
+                continue
+
+            h, w = shape[1:3]
+            dy = torch.randn(y.shape, generator=gen, device="cuda").to(dt)
+            dx = maxpool_3x3s2_bwd(idx, dy, h, w)
+            want = maxpool_3x3s2_bwd_reference(idx, dy, h, w)
+            torch.cuda.synchronize()
+            if not torch.equal(dx, want):
+                raise AssertionError(f"K2 {name}: kernel differs from its plain version")
+            leaf = x.clone().requires_grad_(True)
+            out = maxpool_3x3s2(leaf)
+            if out.grad_fn is None:
+                raise AssertionError("K1 under grad: the output carries no grad_fn")
+            before = maxpool_3x3s2_bwd.launches
+            out.backward(dy)
+            if maxpool_3x3s2_bwd.launches != before + 1 or not torch.equal(leaf.grad, want):
+                raise AssertionError("K1 under grad: the backward did not go through K2")
+            _, lib_idx = F.max_pool2d(x_nchw, 3, 2, 1, return_indices=True)
+            dy_nchw = dy.permute(0, 3, 1, 2)
+            k2[name] = row(
+                (dx.float() - want.float()).abs().max().item(),
+                lambda: maxpool_3x3s2_bwd(idx, dy, h, w),
+                lambda: maxpool_3x3s2_bwd_reference(idx, dy, h, w),
+                bound_ms(nbytes(dy, idx, dx), 4 * dx.numel(), dt),
+                lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    dy_nchw, x_nchw, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx),
+            )
+            log(f"K2 maxpool bwd {name} dy {list(dy.shape)} -> dx {list(shape)}: exact; "
+                f"{json.dumps(k2[name])}")
+            del x, y, idx, ref, ref_idx, dy, dx, want, leaf, out, lib_idx
+    return k1, k2
+
+
+def check_attention(gen) -> tuple:
+    """K3 at the serving and training shapes, K4 at the training shape."""
+    from r3m_tpu_torch.ops.attention import (
+        fused_attention,
+        fused_attention_bwd,
+        fused_attention_bwd_reference,
+        fused_attention_fwd,
+        fused_attention_reference,
+    )
+
+    t, h, d = 50, 12, 64  # ViT-B/32 at 224 px
+    k3, k4 = {}, {}
+    for phase, b in (("serve", SERVE_BATCH), ("train", TRAIN_BATCH)):
+        for dt in (torch.float32, torch.bfloat16):
+            name = f"{phase}_{DT_NAMES[dt]}"
+            q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device="cuda").to(dt)
+                           for _ in range(4))
+            o = fused_attention_fwd(q, k, v, h)
+            ref = fused_attention_reference(q, k, v, h)
+            torch.cuda.synchronize()
+            err = (o.float() - ref.float()).abs().max().item()
+            if not err <= ATTENTION_ATOL[dt]:
+                raise AssertionError(f"K3 {name}: max abs error {err} > {ATTENTION_ATOL[dt]}")
+            qh, kh, vh, doh = (x.view(b, t, h, d).transpose(1, 2) for x in (q, k, v, do))
+            lib = F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2).reshape(b, t, -1)
+            log(f"K3 {name}: max abs difference from SDPA (informative) "
+                f"{(o.float() - lib.float()).abs().max().item()}")
+            flops = 2 * b * h * 2 * t * t * d
+            k3[name] = row(err, lambda: fused_attention_fwd(q, k, v, h),
+                           lambda: fused_attention_reference(q, k, v, h),
+                           bound_ms(nbytes(q, k, v, o), flops, dt),
+                           lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            log(f"K3 attention {name} {[b, t, h * d]} H={h}: atol {ATTENTION_ATOL[dt]}; "
+                f"{json.dumps(k3[name])}")
+            if phase != "train":
+                continue
+
+            grads = fused_attention_bwd(q, k, v, do, h)
+            want = fused_attention_bwd_reference(q, k, v, do, h)
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            auto = torch.autograd.grad(fused_attention_reference(*leaves, h), leaves, do)
+            torch.cuda.synchronize()
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, want))
+            rel_l2 = max(((g.float() - w.float()).norm() / w.float().norm()).item()
+                         for g, w in zip(grads, want))
+            err_auto = max((g.float() - w.float()).abs().max().item()
+                           for g, w in zip(grads, auto))
+            rel_l2_auto = max(((g.float() - w.float()).norm() / w.float().norm()).item()
+                              for g, w in zip(grads, auto))
+            if not (err <= ATTENTION_ATOL[dt] and rel_l2 <= K4_REL_L2[dt]
+                    and err_auto <= AUTOGRAD_ATOL[dt]):
+                raise AssertionError(
+                    f"K4 {name}: max abs error {err} (atol {ATTENTION_ATOL[dt]}) and "
+                    f"relative L2 error {rel_l2} ({K4_REL_L2[dt]}) against the plain "
+                    f"backward, {err_auto} against autograd (atol {AUTOGRAD_ATOL[dt]})")
+            out = fused_attention(*leaves, h)
+            if out.grad_fn is None:
+                raise AssertionError("K3 under grad: the output carries no grad_fn")
+            before = fused_attention_bwd.launches
+            got = torch.autograd.grad(out, leaves, do)
+            if fused_attention_bwd.launches != before + 1 or not all(
+                    torch.equal(a, g) for a, g in zip(got, grads)):
+                raise AssertionError("K3 under grad: the backward did not go through K4")
+            lib_in = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
+            lib_out = F.scaled_dot_product_attention(*lib_in)
+            k4[name] = row(
+                err,
+                lambda: fused_attention_bwd(q, k, v, do, h),
+                lambda: fused_attention_bwd_reference(q, k, v, do, h),
+                bound_ms(nbytes(q, k, v, do, *grads), 5 * flops // 2, dt),
+                lambda: torch.autograd.grad(lib_out, lib_in, doh, retain_graph=True),
+            )
+            k4[name]["rel_l2_err"] = rel_l2
+            k4[name]["max_abs_err_vs_autograd"] = err_auto
+            k4[name]["rel_l2_err_vs_autograd"] = rel_l2_auto  # informative: no dU rounding
+            log(f"K4 attention bwd {name} {[b, t, h * d]} H={h}: atol {ATTENTION_ATOL[dt]}, "
+                f"relative L2 {K4_REL_L2[dt]} (autograd {AUTOGRAD_ATOL[dt]}); "
+                f"{json.dumps(k4[name])}")
+            del grads, want, leaves, auto, out, got, lib_in, lib_out
+    return k3, k4
+
+
+def counters():
+    from r3m_tpu_torch.ops.attention import fused_attention_bwd, fused_attention_fwd
+    from r3m_tpu_torch.ops.pool import maxpool_3x3s2_bwd, maxpool_3x3s2_fwd
+
+    return {"K1": maxpool_3x3s2_fwd, "K2": maxpool_3x3s2_bwd,
+            "K3": fused_attention_fwd, "K4": fused_attention_bwd}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: c.launches for k, c in counters().items()}
 
 
 def write_model_pt(path: str, convnet: torch.nn.Module) -> None:
@@ -143,23 +292,20 @@ def cosine_rows(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
     return np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
-def serve(name: str, convnet: torch.nn.Module, out_dim: int, counter, min_cosine: float,
-          tmp: str) -> dict:
-    """Serve requests through load_r3m_from_files; return the kernel's launches and
-    frames/s. `min_cosine` bounds fast against parity, row by row."""
+def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
+          min_cosine: float, tmp: str) -> dict:
+    """Serve requests through load_r3m_from_files; return the launches and frames/s.
+    `min_cosine` bounds fast against parity, row by row."""
     import r3m_tpu_torch
-    from r3m_tpu_torch.ops.attention import fused_attention
-    from r3m_tpu_torch.ops.pool import maxpool_3x3s2
 
     path = os.path.join(tmp, f"{name}.pt")
     write_model_pt(path, convnet)
     rng = np.random.default_rng(SEED)
-    frames = [rng.integers(0, 256, (BATCH, 3, 224, 224), dtype=np.uint8)
-              for _ in range(REQUESTS)]
+    frames = [rng.integers(0, 256, (SERVE_BATCH, 3, 224, 224), dtype=np.uint8)
+              for _ in range(SERVE_REQUESTS)]
     odd = rng.integers(0, 256, (64, 3, 240, 320), dtype=np.uint8)
 
-    maxpool_3x3s2.launches = 0
-    fused_attention.launches = 0
+    reset_counts()
     out, fps = {}, {}
     for precision in ("parity", "fast"):
         enc = r3m_tpu_torch.load_r3m_from_files(path, precision=precision)
@@ -169,18 +315,18 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, counter, min_cosine
         for f in frames:
             e = enc(f)
         torch.cuda.synchronize()
-        fps[precision] = BATCH * len(frames) / (time.perf_counter() - t0)
+        fps[precision] = SERVE_BATCH * len(frames) / (time.perf_counter() - t0)
         e_odd = enc(odd)
-        for got, n in ((first, BATCH), (e, BATCH), (e_odd, len(odd))):
+        for got, n in ((first, SERVE_BATCH), (e, SERVE_BATCH), (e_odd, len(odd))):
             if got.shape != (n, out_dim) or got.dtype != torch.float32:
                 raise AssertionError(f"{name} {precision}: output {got.shape} {got.dtype}")
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{name} {precision}: non-finite embeddings")
         out[precision] = (first, e_odd)
         del enc
-    launches = counter.launches
-    if launches == 0:
-        raise AssertionError(f"{name}: the serving path never launched its kernel")
+    launches = read_counts()
+    if launches[kernel] == 0:
+        raise AssertionError(f"{name}: the serving path never launched {kernel}")
 
     cos = min(cosine_rows(out["fast"][i], out["parity"][i]).min() for i in (0, 1))
     if not cos >= min_cosine:
@@ -208,6 +354,163 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, counter, min_cosine
     return result
 
 
+def train_batch(gen, clips: int, hw: int, vocab: int, tokens: int) -> dict:
+    """A batch on the device: uint8 clips, token ids with padded tails (pad id 0), and
+    two clips with an empty caption.
+
+    Each clip blends two smooth random images A -> B over time, with the frames in the
+    order the data pipeline emits them (start, goal, three ordered middle frames), so the
+    TCN and language losses have something to learn within a few steps.
+    """
+    ends = torch.rand((2 * clips, 3, 28, 28), generator=gen, device="cuda") * 255.0
+    ends = F.interpolate(ends, size=(hw, hw), mode="bilinear", align_corners=False)
+    a, b = ends.permute(0, 2, 3, 1).reshape(2, clips, 1, hw, hw, 3)
+    middle = torch.rand((clips, 3), generator=gen, device="cuda").sort(dim=1).values
+    t = torch.cat([torch.zeros((clips, 1), device="cuda"),
+                   torch.ones((clips, 1), device="cuda"), middle], dim=1)
+    t = t[:, :, None, None, None]
+    images = ((1.0 - t) * a + t * b).round().to(torch.uint8)
+    lengths = torch.randint(tokens // 4, tokens + 1, (clips,), generator=gen, device="cuda")
+    attn_mask = (torch.arange(tokens, device="cuda")[None] < lengths[:, None]).long()
+    token_ids = torch.randint(1, vocab, (clips, tokens), generator=gen, device="cuda")
+    lang_mask = torch.ones(clips, device="cuda")
+    lang_mask[:2] = 0.0
+    return {"images": images, "token_ids": token_ids * attn_mask, "attn_mask": attn_mask,
+            "lang_mask": lang_mask}
+
+
+def check_gradients(name: str, model: torch.nn.Module) -> int:
+    """Every trainable parameter has a finite, non-zero gradient; returns their count."""
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all() or not (p.grad != 0).any()]
+    if bad:
+        raise AssertionError(f"{name}: {len(bad)} parameters without a finite, non-zero "
+                             f"gradient, e.g. {bad[:5]}")
+    return sum(1 for _ in model.parameters())
+
+
+def train(name: str, size: int, bert, gen) -> dict:
+    """The bf16 pretraining step at full width: warm-up steps, then timed steps on one
+    repeated batch (fresh crops and negatives each step, from the state's generator)."""
+    from r3m_tpu_torch.data.augment import sample_crop_params
+    from r3m_tpu_torch.losses import draw_permutations
+    from r3m_tpu_torch.models.r3m import R3MConfig
+    from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
+                    num_negatives=3, lr=1e-4, compute_dtype="bfloat16")
+    state = create_train_state(cfg, SEED)
+    step = make_train_step(cfg, bert, doaug="rctraj")
+    batch = train_batch(gen, TRAIN_CLIPS, 224, bert.cfg.vocab_size, LANG_LEN)
+    stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    losses = []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["full_loss"]))  # waits for the step
+    elapsed = time.perf_counter() - t0
+    launches = read_counts()
+    steps = WARMUP_STEPS + TIMED_STEPS
+
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} train: non-finite loss {losses}")
+    if state.step != steps:
+        raise AssertionError(f"{name} train: step {state.step} after {steps} steps")
+    want = ({"K1": steps, "K2": steps, "K3": 0, "K4": 0} if size else
+            {"K1": 0, "K2": 0, "K3": 12 * steps, "K4": 12 * steps})
+    if launches != want:
+        raise AssertionError(f"{name} train: launches {launches}, expected {want}")
+    if size and not all(not torch.equal(v, stats0[k]) for k, v in state.batch_stats.items()):
+        raise AssertionError(f"{name} train: some BatchNorm statistics did not move")
+    n_params = check_gradients(name, state.model)
+
+    # Fresh crops and negatives each step make the loss of a random-init model wander;
+    # with them held fixed the same batch is the same objective, and it must fall.
+    perms = draw_permutations(gen, TRAIN_CLIPS, cfg.num_negatives)
+    crops = sample_crop_params(gen, TRAIN_CLIPS, 224, 224)
+    fixed = [float(step(state, batch, perms=perms, crops=crops)[1]["full_loss"])
+             for _ in range(LEARN_STEPS)]
+    if not (all(np.isfinite(fixed)) and fixed[-1] < fixed[0]):
+        raise AssertionError(f"{name} train: with fixed draws the loss did not fall: {fixed}")
+    result = {
+        "launches": launches,
+        "steps": steps,
+        "clips": TRAIN_CLIPS,
+        "frames_per_step": TRAIN_BATCH,
+        "losses": losses,
+        "losses_fixed_draws": fixed,
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "train_frames_per_s": TIMED_STEPS * TRAIN_BATCH / elapsed,
+        "ms_per_step": elapsed / TIMED_STEPS * 1e3,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "params_with_gradient": n_params,
+    }
+    log(f"{name} train: {json.dumps(result)}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def cuda_against_cpu(size: int, image_size: int) -> dict:
+    """One f32 step on the card (TF32 off) and on the CPU from the same state, batch,
+    permutations and crops. The loss agrees to rtol 1e-4 and each gradient leaf to
+    relative L2 error 1e-3: what is left is the order of f32 sums."""
+    from r3m_tpu_torch.models.distilbert import DistilBert, DistilBertConfig
+    from r3m_tpu_torch.models.r3m import R3MConfig, r3m_init
+    from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    cfg = R3MConfig(size=size, hidden_dim=64, langweight=1.0, image_size=image_size)
+    torch.manual_seed(SEED)
+    bert = DistilBert(DistilBertConfig(vocab_size=100, n_layers=1, n_heads=4,
+                                       hidden_dim=128, max_position_embeddings=16))
+    model = r3m_init(cfg, SEED)
+    g = torch.Generator().manual_seed(SEED)
+    clips, hw = 4, image_size + 8
+    batch = {"images": torch.randint(0, 256, (clips, FRAMES, hw, hw, 3), generator=g,
+                                     dtype=torch.uint8),
+             "token_ids": torch.randint(0, 100, (clips, 12), generator=g),
+             "attn_mask": torch.ones((clips, 12), dtype=torch.int64),
+             "lang_mask": torch.ones(clips)}
+    perms = {"lang": torch.stack([torch.randperm(clips, generator=g) for _ in range(9)])
+             .reshape(3, 3, clips),
+             "tcn": torch.stack([torch.randperm(clips, generator=g) for _ in range(6)])
+             .reshape(3, 2, clips)}
+    crops = torch.tensor([[0, 0, hw, hw], [3, 5, hw - 6, hw - 9], [2, 2, hw // 2, hw // 2],
+                          [1, 4, hw - 2, hw - 5]], dtype=torch.float32)
+    out = {}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", "cuda"):
+            state = create_train_state(cfg, SEED, model=copy.deepcopy(model), device=device)
+            step = make_train_step(cfg, copy.deepcopy(bert), doaug="rctraj", device=device)
+            state, metrics = step(state, batch, perms=perms, crops=crops)
+            out[device] = (float(metrics["full_loss"]),
+                           {n: p.grad.cpu().double() for n, p in
+                            state.model.named_parameters()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out["cpu"], out["cuda"]
+    floor = 1e-4 * max(g.norm().item() for g in g_cpu.values())
+    errs = {n: (g_gpu[n] - w).norm().item() / max(w.norm().item(), floor)
+            for n, w in g_cpu.items()}
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    result = {"size": size, "image_size": image_size, "loss_cpu": loss_cpu,
+              "loss_cuda": loss_gpu, "loss_rel_err": loss_rel,
+              "worst_grad_leaf": worst, "worst_grad_rel_l2": errs[worst]}
+    log(f"cuda vs cpu step: {json.dumps(result)}")
+    if not (loss_rel <= 1e-4 and errs[worst] <= 1e-3):
+        raise AssertionError(f"size {size}: the card's step disagrees with the CPU's")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -219,21 +522,20 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    from r3m_tpu_torch.models.distilbert import DistilBert
     from r3m_tpu_torch.models.resnet import ResNet
     from r3m_tpu_torch.models.vit import ViT
     from r3m_tpu_torch.ops import _build
-    from r3m_tpu_torch.ops.attention import fused_attention
-    from r3m_tpu_torch.ops.pool import maxpool_3x3s2
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     built = _build.build()
-    log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    log(f"built {sorted(built)} in {time.perf_counter() - t_start:.1f} s")
     for name, (path, compiler_log) in built.items():
         log(f"{name}: {path}\n{compiler_log.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    pool_rows = check_pool(gen)
-    attn_rows = check_attention(gen)
+    k1_rows, k2_rows = check_pool(gen)
+    k3_rows, k4_rows = check_attention(gen)
 
     torch.manual_seed(SEED)
     resnet = ResNet(50)
@@ -244,26 +546,45 @@ def main() -> int:
                 m.bias.uniform_(-0.1, 0.1)
                 m.running_mean.uniform_(-0.1, 0.1)
                 m.running_var.uniform_(0.5, 1.5)
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
-        r50 = serve("resnet50", resnet, 2048, maxpool_3x3s2, 0.9999, tmp)
+        paths["serve_resnet50"] = serve("resnet50", resnet, 2048, "K1", 0.9999, tmp)
         del resnet
         # ViT-B/32 in bf16 carries its residual stream in bf16 through 12 layers, as the
         # JAX package's fast path does; with these N(0, 0.02) weights both packages'
         # fast paths land at cosine ~0.9999 against parity on the CPU, so the bound is
         # looser than the ResNet's.
-        vit = serve("vit_b32", ViT(), 768, fused_attention, 0.9995, tmp)
+        paths["serve_vit_b32"] = serve("vit_b32", ViT(), 768, "K3", 0.9995, tmp)
 
-    def entry(name, source, replaces, rows, launches):
-        main_row = dict(rows["f32"])
+    torch.manual_seed(SEED)
+    bert = DistilBert().to("cuda")  # distilbert-base geometry, seeded random weights
+    paths["train_resnet50"] = train("resnet50", 50, bert, gen)
+    paths["train_vit_b32"] = train("vit_b32", 0, bert, gen)
+    del bert
+    torch.cuda.empty_cache()
+    for size, image_size in ((18, 32), (0, 64)):
+        cuda_against_cpu(size, image_size)
+
+    def entry(key, name, source, replaces, rows):
+        by_path = {p: r["launches"][key] for p, r in paths.items() if r["launches"][key]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, **main_row, "bf16": rows["bf16"]}
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                **rows[MAIN_ROW], "shape_of_main_row": MAIN_ROW, "rows": rows}
 
     kernels = [
-        entry("maxpool_3x3s2", "r3m_tpu_torch/csrc/maxpool.cu",
-              "r3m_tpu/ops/pallas_pool.py:109", pool_rows, r50["launches"]),
-        entry("fused_attention", "r3m_tpu_torch/csrc/attention.cu",
-              "r3m_tpu/ops/attention.py:221", attn_rows, vit["launches"]),
+        entry("K1", "maxpool_3x3s2_fwd", "r3m_tpu_torch/csrc/maxpool.cu",
+              "r3m_tpu/ops/pallas_pool.py:109", k1_rows),
+        entry("K2", "maxpool_3x3s2_bwd", "r3m_tpu_torch/csrc/maxpool.cu",
+              "r3m_tpu/ops/pallas_pool.py:130", k2_rows),
+        entry("K3", "fused_attention_fwd", "r3m_tpu_torch/csrc/attention.cu",
+              "r3m_tpu/ops/attention.py:221", k3_rows),
+        entry("K4", "fused_attention_bwd", "r3m_tpu_torch/csrc/attention.cu",
+              "r3m_tpu/ops/attention.py:239", k4_rows),
     ]
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']}: no path launched it")
+    log(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

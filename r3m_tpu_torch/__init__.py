@@ -1,15 +1,16 @@
 """r3m_tpu_torch — R3M pretrained visual representations on PyTorch and CUDA.
 
-The PyTorch port of `r3m_tpu`, for an NVIDIA H100 (sm_90a). This slice serves: the
-reference's public API, `load_r3m(modelid)` / `load_r3m_reproduce(modelid)` /
+The PyTorch port of `r3m_tpu`, for an NVIDIA H100 (sm_90a). It serves: the reference's
+public API, `load_r3m(modelid)` / `load_r3m_reproduce(modelid)` /
 `load_r3m_from_files(path)`, returns an `R3MEncoder` (alias `R3M`) that maps NCHW images
-in [0, 255] to embeddings. Reference ``model.pt`` files load natively. The ResNet stem
-pool and the ViT attention run hand-written CUDA kernels (``r3m_tpu_torch/csrc``), built
-at first use.
+in [0, 255] to embeddings. Reference ``model.pt`` files load natively. And it pretrains:
+`r3m_tpu_torch.training.trainer.make_train_step` is the R3M pretraining step. The ResNet
+stem pool and the ViT attention, forward and backward, run hand-written CUDA kernels
+(``r3m_tpu_torch/csrc``), built at first use.
 
-Every entry point takes ``precision=`` ("parity" or "fast") and ``device=``; the device
-is ``"cuda"`` unless the caller names another, and with no card a CUDA request raises.
-This package imports neither `jax` nor `r3m_tpu`.
+Every serving entry point takes ``precision=`` ("parity" or "fast"), and every entry
+point ``device=``; the device is ``"cuda"`` unless the caller names another, and with no
+card a CUDA request raises. This package imports neither `jax` nor `r3m_tpu`.
 """
 
 from __future__ import annotations

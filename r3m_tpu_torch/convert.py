@@ -4,8 +4,10 @@ The port keeps the reference's torch names and layouts, so a reference ``model.p
 natively. `state_dict_from_jax` turns a JAX numpy pytree (``{"convnet": ...}`` params and
 batch stats) into that format: HWIO -> OIHW convolutions, BN scale/bias/mean/var ->
 weight/bias/running_mean/running_var, dense ``[in, out]`` -> Linear ``[out, in]``, and the
-HF ``ViTModel`` names for size 0. The numpy input is all it reads: it imports nothing of
-JAX.
+HF ``ViTModel`` names for size 0. `model_from_jax` carries a JAX train state's params and
+batch stats into an `R3MModel`, and `distilbert_state_from_jax` the frozen DistilBERT
+pytree into HF ``DistilBertModel`` names (the inverse of the JAX ``convert_distilbert``).
+The numpy input is all it reads: it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from r3m_tpu_torch.models.distilbert import DistilBert, DistilBertConfig
+from r3m_tpu_torch.models.r3m import R3MConfig, R3MModel
 from r3m_tpu_torch.models.resnet import RESNET_SPECS
 from r3m_tpu_torch.models.vit import require_b32_geometry, vit_config_from_state
 
@@ -149,3 +153,50 @@ def state_dict_from_jax(
         for i, layer in zip((0, 2, 4, 6, 8), params["lang_rew"]["layers"]):
             _linear(sd, f"{pre}lang_rew.pred.{i}", layer)
     return sd
+
+
+def model_from_jax(cfg: R3MConfig, params: Mapping, batch_stats: Mapping) -> R3MModel:
+    """A JAX train state's ``params`` (``{"convnet", "lang_rew"?}``) and ``batch_stats``
+    (numpy leaves, unpacked BatchNorm) as an `R3MModel` on the CPU."""
+    model = R3MModel(cfg)
+    sd = state_dict_from_jax(params, batch_stats, cfg.size, data_parallel=False)
+    model.load_state_dict(sd)
+    return model
+
+
+def distilbert_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX DistilBERT pytree (``embeddings{word,pos,ln}``, ``layers[q,k,v,o,sa_ln,lin1,
+    lin2,out_ln]``) -> HF ``DistilBertModel`` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def ln(key, p):
+        sd[f"{key}.weight"] = _t(p["scale"])
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+    emb = params["embeddings"]
+    sd["embeddings.word_embeddings.weight"] = _t(emb["word"])
+    sd["embeddings.position_embeddings.weight"] = _t(emb["pos"])
+    ln("embeddings.LayerNorm", emb["ln"])
+    names = {"q": "attention.q_lin", "k": "attention.k_lin", "v": "attention.v_lin",
+             "o": "attention.out_lin", "lin1": "ffn.lin1", "lin2": "ffn.lin2"}
+    for i, layer in enumerate(params["layers"]):
+        base = f"transformer.layer.{i}"
+        for key, name in names.items():
+            _linear(sd, f"{base}.{name}", layer[key])
+        ln(f"{base}.sa_layer_norm", layer["sa_ln"])
+        ln(f"{base}.output_layer_norm", layer["out_ln"])
+    return sd
+
+
+def distilbert_from_jax(params: Mapping, n_heads: int = 12) -> DistilBert:
+    """A JAX DistilBERT pytree as a frozen `DistilBert` on the CPU. Every dimension comes
+    from the shapes except `n_heads`, which none shows (12 in distilbert-base)."""
+    vocab, dim = np.shape(params["embeddings"]["word"])
+    cfg = DistilBertConfig(
+        vocab_size=int(vocab), dim=int(dim), n_layers=len(params["layers"]),
+        n_heads=n_heads, hidden_dim=int(np.shape(params["layers"][0]["lin1"]["w"])[1]),
+        max_position_embeddings=int(np.shape(params["embeddings"]["pos"])[0]),
+    )
+    model = DistilBert(cfg)
+    model.load_state_dict(distilbert_state_from_jax(params))
+    return model

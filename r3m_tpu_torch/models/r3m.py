@@ -1,9 +1,13 @@
-"""R3M visual encoder for serving, the port of ``r3m_tpu/models/r3m.py``.
+"""R3M model: visual encoder, similarity and language-reward container, the port of
+``r3m_tpu/models/r3m.py``.
 
 `R3MConfig` keeps every field of the JAX config and its validation, so configs
-round-trip between the two packages. `r3m_embed` is the eval-mode embedding (images ->
-features). `R3MEncoder` is what `r3m_tpu_torch.load_r3m` returns: NCHW images in
-[0, 255] in, ``[B, out_dim]`` f32 embeddings out, with BatchNorm folded once for ResNets.
+round-trip between the two packages. `R3MModel` (made by `r3m_init`) holds the trainable
+state: the backbone ``convnet`` with its BatchNorm statistics and, when ``langweight > 0``,
+the reward head ``lang_rew``. `r3m_embed` maps images to features in eval or train mode;
+`safe_l2_norm` and `sim` are the losses' similarity. `R3MEncoder` is what
+`r3m_tpu_torch.load_r3m` returns: NCHW images in [0, 255] in, ``[B, out_dim]`` f32
+embeddings out, with BatchNorm folded once for ResNets.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from r3m_tpu_torch.models.language_reward import LanguageReward
 from r3m_tpu_torch.models.resnet import (
     ResNet,
     cast_folded,
@@ -40,9 +45,9 @@ class R3MConfig:
     """Model/loss configuration; field names and defaults mirror the JAX package's
     `R3MConfig` and the reference's `cfgs/config_rep.yaml` agent block.
 
-    Serving reads `size`, `image_size` and `compute_dtype`; the training fields are kept
-    so that a config written by either package loads in the other. In this package the
-    ViT's attention always runs its fused kernel, so `vit_fused_attn` only validates.
+    In this package the ViT's attention always runs its fused kernels, so
+    `vit_fused_attn` only validates; the port trains with BatchNorm unpacked, so
+    `packed_bn` (a TPU memory layout with the same math) is read by nothing.
     """
 
     size: int = 34  # 18 | 34 | 50 | 0 (ViT-B/32)
@@ -121,30 +126,89 @@ def _preprocess(cfg: R3MConfig, obs: torch.Tensor) -> torch.Tensor:
     return r3m_preprocess(obs, mean, std, crop_size=cfg.image_size, resize_to=cfg.resize_to)
 
 
-def r3m_embed(
-    cfg: R3MConfig, convnet: nn.Module, obs: torch.Tensor, *, prenormalized: bool = False
-) -> torch.Tensor:
-    """Images -> embeddings in eval mode (reference `forward`, models_r3m.py:84-100).
+class R3MModel(nn.Module):
+    """The trainable state of R3M: ``convnet`` (its parameters and BatchNorm statistics)
+    and, when ``cfg.langweight > 0``, ``lang_rew``. Parameter names are the reference's
+    (``convnet.*``, ``lang_rew.pred.*``), without DataParallel's ``module.``."""
 
-    `obs`: NHWC float/int in [0, 255] (or, with `prenormalized`, encoder-input form).
-    Returns ``[B, out_dim]`` f32. The port of ``r3m_embed(train=False)``; BatchNorm reads
-    its running statistics, which stay as they are.
+    def __init__(self, cfg: R3MConfig):
+        super().__init__()
+        self.convnet = build_convnet(cfg)
+        self.lang_rew = (
+            LanguageReward(cfg.out_dim, cfg.hidden_dim, cfg.lang_dim)
+            if cfg.langweight > 0
+            else None
+        )
+
+
+def r3m_init(cfg: R3MConfig, seed: int = 0) -> R3MModel:
+    """A fresh `R3MModel`, drawn from `seed` without touching torch's global generator."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return R3MModel(cfg)
+
+
+def r3m_embed(
+    cfg: R3MConfig,
+    convnet: nn.Module,
+    obs: torch.Tensor,
+    *,
+    train: bool = False,
+    prenormalized: bool = False,
+) -> torch.Tensor:
+    """Images -> embeddings (reference `forward`, models_r3m.py:84-100).
+
+    `obs`: NHWC float/int in [0, 255] (or, with `prenormalized`, encoder-input form, as
+    the augmentation emits it). Returns ``[B, out_dim]`` f32. ``train=False`` is the port
+    of ``r3m_embed(train=False)``: BatchNorm reads its running statistics, which stay as
+    they are. ``train=True``: ResNet BatchNorm uses batch statistics and updates the
+    running ones in place; the ViT has no BatchNorm and runs the same forward.
     """
+    if train and cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported yet; train with remat='none'"
+        )
     x = obs if prenormalized else _preprocess(cfg, obs)
     x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     if cfg.size == 0:
         return convnet(x, compute_dtype=cfg.torch_compute_dtype)
-    return convnet(x.to(cfg.torch_compute_dtype))
+    return convnet(x.to(cfg.torch_compute_dtype), train=train)
+
+
+def safe_l2_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """L2 norm with an exact forward and a zero subgradient where x == 0 (torch's rule,
+    which the reference relies on when a shuffled negative meets itself). The double
+    `where` keeps the square root away from 0, so no 0/0 reaches the gradient."""
+    sq = (x * x).sum(dim=dim)
+    is_zero = sq == 0
+    return torch.where(is_zero, 0.0, torch.sqrt(torch.where(is_zero, 1.0, sq)))
+
+
+def sim(cfg: R3MConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """-L2 distance or cosine similarity over the last axis (models_r3m.py:102-107).
+
+    Cosine follows torch 1.7.1, the version the reference pins: dot / max(|a|*|b|, eps),
+    the clamp on the norm PRODUCT, so exactly-zero embeddings give 0, not NaN.
+    """
+    if cfg.l2dist:
+        return -safe_l2_norm(a - b, dim=-1)
+    dot = (a * b).sum(dim=-1)
+    denom = safe_l2_norm(a, dim=-1) * safe_l2_norm(b, dim=-1)
+    return dot / torch.clamp(denom, min=1e-8)
 
 
 def resolve_device(device=None) -> torch.device:
-    """``"cuda"`` unless the caller names another device; a CUDA device needs a card."""
+    """``"cuda"`` unless the caller names another device; a CUDA device needs a card.
+    A CUDA device without an index resolves to the current one."""
     device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "r3m_tpu_torch serves on a CUDA device by default and none is available; "
-            "pass device='cpu' to run on the CPU"
-        )
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "r3m_tpu_torch runs on a CUDA device by default and none is available; "
+                "pass device='cpu' to run on the CPU"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

@@ -3,9 +3,11 @@
 `ResNet` is an ``nn.Module`` whose state-dict keys are torchvision's (``conv1``, ``bn1``,
 ``layer{1..4}.{i}.conv{j}`` / ``bn{j}``, ``downsample.0`` / ``.1``; ``fc`` is the
 reference's Identity and holds nothing), so a reference ``model.pt`` loads as it is. Its
-forward is the eval-mode encoder; serving folds BatchNorm into the convolutions once
-(`fold_batchnorm`) and runs `resnet_apply_folded`. Both run NCHW tensors in channels_last
-memory, so the stem pool (kernel K1, `r3m_tpu_torch.ops.pool`) reads physical NHWC.
+forward is the encoder in eval mode (``train=False``: BatchNorm reads the running
+statistics) or in train mode (``train=True``: batch statistics, running statistics
+updated in place). Serving folds BatchNorm into the convolutions once (`fold_batchnorm`)
+and runs `resnet_apply_folded`. Both run NCHW tensors in channels_last memory, so the
+stem pool (kernels K1 and K2, `r3m_tpu_torch.ops.pool`) reads physical NHWC.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ RESNET_SPECS: Dict[int, ResNetSpec] = {
 }
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def resnet_out_dim(size: int) -> int:
@@ -117,16 +120,20 @@ class ResNet(nn.Module):
         for stage in range(4):
             yield from getattr(self, f"layer{stage + 1}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval-mode encoder: NCHW normalized images -> ``[B, out_dim]`` f32 features.
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """NCHW normalized images -> ``[B, out_dim]`` f32 features; convolutions run in
+        x.dtype (weights cast to it, as ``resnet.py:92`` does).
 
-        BatchNorm uses the running statistics whatever the module's mode (the port of
-        ``resnet_apply(train=False)``); the convolutions run in x.dtype.
+        ``train=False`` is the port of ``resnet_apply(train=False)``: BatchNorm reads its
+        running statistics whatever the module's mode. ``train=True`` is the port of
+        ``resnet_apply(train=True)``: BatchNorm normalises with the batch statistics and
+        updates the running statistics in place (`_bn_train`).
         """
+        bn_fn = _bn_train if train else _bn_eval
 
         def conv_bn(y, conv, bn, stride, padding):
             y = F.conv2d(y, conv.weight.to(y.dtype), None, stride, padding)
-            return _bn_eval(y, bn)
+            return bn_fn(y, bn)
 
         y = F.relu(conv_bn(x, self.conv1, self.bn1, 2, 3))
         y = _pool(y)
@@ -146,6 +153,21 @@ class ResNet(nn.Module):
         return y.to(torch.float32).mean(dim=(2, 3))
 
 
+def _bn_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train BatchNorm as the JAX ``batch_norm(train=True)``: normalise with the biased
+    batch variance, update the running variance with the unbiased one, momentum 0.1,
+    eps 1e-5; statistics in f32 and the f32 scale and bias, output in y.dtype.
+
+    This is torch's own BatchNorm in training mode (cuDNN on the card), whose running
+    statistics it updates in place. JAX takes the variance as E[x^2] - E[x]^2 in f32;
+    torch sums otherwise, which differs only by rounding.
+    """
+    return F.batch_norm(
+        y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+        training=True, momentum=BN_MOMENTUM, eps=BN_EPS,
+    )
+
+
 def _bn_eval(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Eval BatchNorm as the JAX ``batch_norm(train=False)``: f32 math, y.dtype out."""
     inv = torch.rsqrt(bn.running_var.float() + BN_EPS) * bn.weight.float()
@@ -155,9 +177,9 @@ def _bn_eval(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
 
 def _pool(y: torch.Tensor) -> torch.Tensor:
-    """The stem pool through K1. The kernel takes NHWC: a channels_last NCHW tensor
-    permutes to a contiguous NHWC view at no cost, and the result permutes back to a
-    channels_last NCHW tensor."""
+    """The stem pool through K1 (and K2 for its gradient). The kernels take NHWC: a
+    channels_last NCHW tensor permutes to a contiguous NHWC view at no cost, and the
+    result permutes back to a channels_last NCHW tensor."""
     return maxpool_3x3s2(y.permute(0, 2, 3, 1).contiguous()).permute(0, 3, 1, 2)
 
 

@@ -5,7 +5,9 @@ is an ``nn.Module`` with HF ``ViTModel`` key names, so the reference's ``convnet
 entries load as they are. The forward follows ``vit_b32_apply``: 32x32/32 patch conv,
 CLS, learned position embeddings, pre-LN layers (exact GELU, LN eps 1e-12), final LN and
 the tanh pooler on CLS, which gives the [B, 768] embedding. Attention goes through
-kernel K3 (`r3m_tpu_torch.ops.attention.fused_attention`).
+`r3m_tpu_torch.ops.attention.fused_attention`: kernel K3 forward and, when the forward is
+differentiated (training), kernel K4 backward, as the JAX training step routes it
+(``r3m_tpu/models/r3m.py:123``, "auto" resolves to the kernel for training).
 """
 
 from __future__ import annotations
@@ -91,7 +93,8 @@ class ViT(nn.Module):
         """NCHW normalized images -> ``[B, dim]`` f32 pooled embedding.
 
         `compute_dtype=torch.bfloat16` runs the products and attention in bf16;
-        parameters stay f32, LayerNorm statistics and softmax stay f32.
+        parameters stay f32, LayerNorm statistics and softmax stay f32. The same forward
+        serves and trains: every op is differentiable.
         """
         cfg = self.cfg
         if compute_dtype is not None:

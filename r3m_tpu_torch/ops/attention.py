@@ -1,18 +1,23 @@
-"""Kernel K3: fused multi-head self-attention forward over packed ``[B, T, H*D]``.
+"""Kernels K3 and K4: fused multi-head self-attention over packed ``[B, T, H*D]``, forward
+and backward.
 
-Replaces the forward of the TPU kernel ``r3m_tpu/ops/attention.py`` (``_fwd_call`` with
-``_fwd_kernel`` / ``_fwd_kernel_batched``, public ``fused_attention``), which the JAX
-ViT-B/32 serving forward runs in every layer. The Hopper kernel is
-``r3m_tpu_torch/csrc/attention.cu``: one block per (batch, head) reads the head's slices
-straight out of the packed tensors, keeps the T x T scores in shared memory, and is bound
-by memory (read Q, K, V once, write O once). Its source says more.
+Replaces the TPU kernel ``r3m_tpu/ops/attention.py`` (``_fwd_call`` and ``_bwd_call``
+with their ``_kernel`` / ``_kernel_batched`` bodies, behind the custom-VJP
+``fused_attention``), which the JAX ViT-B/32 forward runs in every layer. The Hopper
+kernels are in ``r3m_tpu_torch/csrc/attention.cu``: one block per (batch, head) reads the
+head's slices straight out of the packed tensors, keeps the T x T tiles in shared memory,
+and is bound by memory. The backward saves nothing but q, k and v and recomputes P. The
+source says more.
 
-Numerics, as in the TPU kernel: scores and softmax in f32, P cast to V's dtype before the
-product with V, f32 accumulation, output in the input dtype. Float32 is true f32.
+Numerics, as in the TPU kernels: scores and softmax in f32, P cast to V's dtype before the
+product with V (and, in the backward, before dV), dU cast to q's dtype before dQ and dK,
+f32 accumulation, outputs in the input dtype. Float32 is true f32.
 
-`fused_attention` launches the kernel for CUDA tensors and counts the launch in
-``fused_attention.launches``; for CPU tensors it computes `fused_attention_reference`,
-the plain PyTorch version of the same function.
+`fused_attention` is the differentiable entry point (`FusedAttentionFunction`). Its
+forward goes through `fused_attention_fwd` (K3) and its backward through
+`fused_attention_bwd` (K4). Each wrapper launches its kernel for CUDA tensors and counts
+the launch in its ``launches`` attribute; for CPU tensors it computes its plain PyTorch
+version, `fused_attention_reference` or `fused_attention_bwd_reference`.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -29,23 +35,54 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 
 
+def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Packed ``[B, T, H*D]`` -> ``[B, H, T, D]`` in f32."""
+    b, t, hd = x.shape
+    return x.reshape(b, t, n_heads, hd // n_heads).permute(0, 2, 1, 3).float()
+
+
+def _packed(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``[B, H, T, D]`` -> packed ``[B, T, H*D]`` in `dtype`."""
+    b, h, t, d = x.shape
+    return x.to(dtype).permute(0, 2, 1, 3).reshape(b, t, h * d)
+
+
+def _probs(qh: torch.Tensor, kh: torch.Tensor, d: int) -> torch.Tensor:
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def fused_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int
 ) -> torch.Tensor:
     """Plain PyTorch softmax(Q K^T / sqrt(D)) V per head, packed ``[B, T, H*D]`` in/out."""
-    b, t, hd = q.shape
-    d = hd // n_heads
+    d = q.shape[-1] // n_heads
+    p = _probs(_heads(q, n_heads), _heads(k, n_heads), d)
+    ctx = torch.matmul(p.to(v.dtype).float(), _heads(v, n_heads))
+    return _packed(ctx, q.dtype)
 
-    def heads(x):
-        return x.reshape(b, t, n_heads, d).permute(0, 2, 1, 3).float()
 
-    qh, kh, vh = heads(q), heads(k), heads(v)
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(d))
-    s = s - s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s)
-    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype).float()
-    ctx = torch.matmul(p, vh).to(q.dtype)
-    return ctx.permute(0, 2, 1, 3).reshape(b, t, hd)
+def fused_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, n_heads: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch recompute-P backward: ``(dq, dk, dv)``, packed, in q's dtype.
+
+    The arithmetic of the TPU kernel's ``_bwd_kernel_batched``: P recomputed in f32,
+    dV = P~^T dO with P~ rounded to V's dtype, dP = dO V^T, dU = P o (dP - rowsum(dP o P))
+    * scale rounded to q's dtype, dQ = dU K, dK = dU^T Q, every product summed in f32.
+    """
+    d = q.shape[-1] // n_heads
+    scale = 1.0 / math.sqrt(d)
+    qh, kh, vh, doh = (_heads(x, n_heads) for x in (q, k, v, do))
+    p = _probs(qh, kh, d)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    du = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale).to(q.dtype).float()
+    dq = torch.matmul(du, kh)
+    dk = torch.matmul(du.transpose(-1, -2), qh)
+    return tuple(_packed(g, q.dtype) for g in (dq, dk, dv))
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,51 +94,67 @@ def _lib():
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.r3m_attention_fwd.restype = ctypes.c_int
-    lib.r3m_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.r3m_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.r3m_attention_bwd.argtypes = [
+        *([ctypes.c_void_p] * 7),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.r3m_attention_bwd.restype = ctypes.c_int
+    for fn in (lib.r3m_attention_smem_bytes, lib.r3m_attention_bwd_smem_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_size_t
     return lib
 
 
-def fused_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int
-) -> torch.Tensor:
-    """Softmax(Q K^T / sqrt(D)) V per head over packed ``[B, T, n_heads * D]`` tensors.
-
-    Head ``h`` occupies columns ``[h*D, (h+1)*D)``; the context comes back in the same
-    packed layout, ready for the output projection. CUDA tensors must be contiguous
-    float32 or bfloat16 of one shape and dtype; they go through the Hopper kernel,
-    never through the plain version.
-    """
-    if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
+def _check(name: str, n_heads: int, *xs: torch.Tensor) -> bool:
+    """Validate packed operands; True for CPU tensors (the plain version), False for
+    CUDA tensors the kernel takes. Raises on anything else."""
+    q = xs[0]
+    if q.ndim != 3 or any(x.shape != q.shape for x in xs):
         raise ValueError(
-            f"q, k, v must share one [B, T, H*D] shape, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"{name}: operands must share one [B, T, H*D] shape, got "
+            f"{[tuple(x.shape) for x in xs]}"
         )
-    b, t, hd = q.shape
-    if hd % n_heads:
-        raise ValueError(f"dim {hd} not divisible by n_heads={n_heads}")
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return fused_attention_reference(q, k, v, n_heads)
-    if any(x.device != q.device or x.device.type != "cuda" for x in (q, k, v)):
+    if q.shape[-1] % n_heads:
+        raise ValueError(f"dim {q.shape[-1]} not divisible by n_heads={n_heads}")
+    if all(x.device.type == "cpu" for x in xs):
+        return True
+    if any(x.device != q.device or x.device.type != "cuda" for x in xs):
         raise ValueError(
-            f"fused_attention runs on one CUDA device or on the CPU, got "
-            f"{q.device}, {k.device}, {v.device}"
+            f"{name} runs on one CUDA device or on the CPU, got {[str(x.device) for x in xs]}"
         )
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in xs):
         raise TypeError(
-            f"fused_attention takes float32 or bfloat16 of one dtype, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
+            f"{name} takes float32 or bfloat16 of one dtype, got {[x.dtype for x in xs]}"
         )
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("fused_attention needs contiguous packed tensors")
-    d = hd // n_heads
-    lib = _lib()
-    smem = lib.r3m_attention_smem_bytes(t, d)
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{name} needs contiguous packed tensors")
+    return False
+
+
+def _check_smem(smem: int, t: int, d: int) -> None:
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"T={t}, D={d} needs {smem} bytes of shared memory per block; the kernel "
             f"keeps a whole head on chip and takes at most {_SMEM_LIMIT}"
         )
+
+
+def fused_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int
+) -> torch.Tensor:
+    """K3: softmax(Q K^T / sqrt(D)) V per head over packed ``[B, T, n_heads * D]``.
+
+    Head ``h`` occupies columns ``[h*D, (h+1)*D)``; the context comes back in the same
+    packed layout. CUDA tensors must be contiguous float32 or bfloat16 of one shape and
+    dtype; they go through the Hopper kernel, never through the plain version.
+    """
+    if _check("fused_attention", n_heads, q, k, v):
+        return fused_attention_reference(q, k, v, n_heads)
+    b, t, hd = q.shape
+    d = hd // n_heads
+    lib = _lib()
+    _check_smem(lib.r3m_attention_smem_bytes(t, d), t, d)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
@@ -113,8 +166,62 @@ def fused_attention(
         )
     if err != 0:
         raise RuntimeError(f"fused_attention kernel launch failed: cudaError_t {err}")
-    fused_attention.launches += 1
+    fused_attention_fwd.launches += 1
     return o
 
 
-fused_attention.launches = 0
+fused_attention_fwd.launches = 0
+
+
+def fused_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, n_heads: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: ``(dq, dk, dv)`` of `fused_attention_fwd` at (q, k, v) for the output gradient
+    `do`, all packed ``[B, T, n_heads * D]`` in q's dtype. CUDA tensors as for K3."""
+    if _check("fused_attention_bwd", n_heads, q, k, v, do):
+        return fused_attention_bwd_reference(q, k, v, do, n_heads)
+    b, t, hd = q.shape
+    d = hd // n_heads
+    lib = _lib()
+    _check_smem(lib.r3m_attention_bwd_smem_bytes(t, d), t, d)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    with torch.cuda.device(q.device):
+        err = lib.r3m_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, n_heads, d, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_attention_bwd kernel launch failed: cudaError_t {err}")
+    fused_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_attention_bwd.launches = 0
+
+
+class FusedAttentionFunction(torch.autograd.Function):
+    """K3 forward, K4 backward. Saves only q, k and v; the backward recomputes P."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads):
+        ctx.n_heads = n_heads
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v)
+        return fused_attention_fwd(q, k, v, n_heads)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*fused_attention_bwd(q, k, v, do.contiguous(), ctx.n_heads), None)
+
+
+def fused_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int
+) -> torch.Tensor:
+    """Softmax(Q K^T / sqrt(D)) V per head over packed ``[B, T, n_heads * D]`` tensors,
+    differentiable in q, k and v (K3 forward, K4 backward on the card)."""
+    return FusedAttentionFunction.apply(q, k, v, n_heads)

@@ -6,15 +6,43 @@ them each test skips. This file imports no JAX, so it runs on a machine without 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
-from r3m_tpu_torch.models.r3m import R3MConfig, R3MEncoder
-from r3m_tpu_torch.ops.attention import fused_attention, fused_attention_reference
-from r3m_tpu_torch.ops.pool import maxpool_3x3s2, maxpool_3x3s2_reference
+from r3m_tpu_torch.models.distilbert import DistilBert, DistilBertConfig
+from r3m_tpu_torch.models.r3m import R3MConfig, R3MEncoder, r3m_init
+from r3m_tpu_torch.ops.attention import (
+    fused_attention,
+    fused_attention_bwd,
+    fused_attention_bwd_reference,
+    fused_attention_fwd,
+    fused_attention_reference,
+)
+from r3m_tpu_torch.ops.pool import (
+    maxpool_3x3s2,
+    maxpool_3x3s2_bwd,
+    maxpool_3x3s2_bwd_reference,
+    maxpool_3x3s2_fwd,
+    maxpool_3x3s2_reference,
+)
+from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
+
+POOL_SHAPES = [(2, 112, 112, 64), (3, 7, 9, 5), (1, 1, 1, 3)]
+ATTENTION_SHAPES = [(4, 50, 12, 64), (2, 10, 3, 8), (3, 7, 2, 16), (2, 120, 2, 64)]
+# K4 keeps two T x T tiles of a head on chip, so it takes shorter heads than K3.
+ATTENTION_BWD_SHAPES = [(4, 50, 12, 64), (2, 10, 3, 8), (3, 7, 2, 16), (2, 100, 2, 64)]
+# K3/K4 sum in another order than their plain versions (which also round P and dU to
+# bf16): f32 agrees to rounding, bf16 to a few bf16 steps of values of order 1.
+ATTENTION_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# K4 rounds P and dU to bf16 where its plain version does, so only an element in a few
+# thousand lands one rounding step apart: each gradient agrees to relative L2 error 5e-4.
+# Without those roundings it would be ~3e-3 away.
+K4_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 
 
 @pytest.fixture
@@ -24,24 +52,65 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _ties(gen, shape, dtype):
+    """ReLU'd integers: most windows hold several equal maxima, as bf16 stem
+    activations do."""
+    return torch.randint(-2, 3, shape, generator=gen, device="cuda").clamp_min(0).to(dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 112, 112, 64), (3, 7, 9, 5), (1, 1, 1, 3)])
-def test_pool_kernel_is_exact(gen, dtype, shape):
-    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    before = maxpool_3x3s2.launches
-    y = maxpool_3x3s2(x)
+@pytest.mark.parametrize("values", ["normal", "ties"])
+@pytest.mark.parametrize("shape", POOL_SHAPES)
+def test_pool_kernel_and_its_argmax_are_exact(gen, dtype, values, shape):
+    x = (torch.randn(shape, generator=gen, device="cuda").to(dtype) if values == "normal"
+         else _ties(gen, shape, dtype))
+    before = maxpool_3x3s2_fwd.launches
+    y, idx = maxpool_3x3s2_fwd(x, argmax=True)
+    y_only, none = maxpool_3x3s2_fwd(x)
     torch.cuda.synchronize()
-    assert maxpool_3x3s2.launches == before + 1
-    assert torch.equal(y, maxpool_3x3s2_reference(x))
+    assert maxpool_3x3s2_fwd.launches == before + 2
+    want_y, want_idx = maxpool_3x3s2_reference(x)
+    assert none is None and torch.equal(y_only, want_y)
+    assert torch.equal(y, want_y) and torch.equal(idx, want_idx)
 
 
 def test_pool_kernel_ties_and_nan(gen):
-    x = torch.randint(0, 3, (2, 10, 10, 8), generator=gen, device="cuda").float()
+    x = _ties(gen, (2, 10, 10, 8), torch.float32)
     x[0, 3, 3, 1] = float("nan")
-    y, ref = maxpool_3x3s2(x), maxpool_3x3s2_reference(x)
+    (y, idx), (ref, ref_idx) = maxpool_3x3s2_fwd(x, argmax=True), maxpool_3x3s2_reference(x)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(y.cpu().numpy(), ref.cpu().numpy())
+    assert torch.equal(idx, ref_idx)
     assert torch.isnan(y).sum().item() == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", POOL_SHAPES)
+def test_pool_backward_kernel_is_exact(gen, dtype, shape):
+    """K2 sums an element's contributions in window-offset order in f32, as its plain
+    version does, so the two agree bit for bit."""
+    _, idx = maxpool_3x3s2_reference(_ties(gen, shape, dtype))
+    dy = torch.randn(idx.shape, generator=gen, device="cuda").to(dtype)
+    before = maxpool_3x3s2_bwd.launches
+    dx = maxpool_3x3s2_bwd(idx, dy, *shape[1:3])
+    torch.cuda.synchronize()
+    assert maxpool_3x3s2_bwd.launches == before + 1
+    assert dx.dtype == dtype and tuple(dx.shape) == shape
+    assert torch.equal(dx, maxpool_3x3s2_bwd_reference(idx, dy, *shape[1:3]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_gradient_goes_through_both_kernels(gen, dtype):
+    x = _ties(gen, (2, 15, 12, 16), dtype).requires_grad_(True)
+    fwd, bwd = maxpool_3x3s2_fwd.launches, maxpool_3x3s2_bwd.launches
+    y = maxpool_3x3s2(x)
+    assert y.grad_fn is not None
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (maxpool_3x3s2_fwd.launches, maxpool_3x3s2_bwd.launches) == (fwd + 1, bwd + 1)
+    _, idx = maxpool_3x3s2_reference(x.detach())
+    assert torch.equal(x.grad, maxpool_3x3s2_bwd_reference(idx, dy, 15, 12))
 
 
 def test_pool_kernel_rejects_what_it_does_not_take(gen):
@@ -50,27 +119,64 @@ def test_pool_kernel_rejects_what_it_does_not_take(gen):
         maxpool_3x3s2(x.permute(0, 2, 1, 3))
     with pytest.raises(TypeError, match="bfloat16"):
         maxpool_3x3s2(x.half())
+    _, idx = maxpool_3x3s2_fwd(x, argmax=True)
+    with pytest.raises(TypeError, match="int8"):
+        maxpool_3x3s2_bwd(idx.int(), torch.zeros_like(idx, dtype=torch.float32), 8, 8)
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8), (3, 7, 2, 16),
-                                     (2, 120, 2, 64)])
-def test_attention_kernel_matches_plain_version(gen, dtype, atol, b, t, h, d):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,d", ATTENTION_SHAPES)
+def test_attention_kernel_matches_plain_version(gen, dtype, b, t, h, d):
     q, k, v = (torch.randn((b, t, h * d), generator=gen, device="cuda").to(dtype)
                for _ in range(3))
-    before = fused_attention.launches
+    before = fused_attention_fwd.launches
     o = fused_attention(q, k, v, h)
     torch.cuda.synchronize()
-    assert fused_attention.launches == before + 1
+    assert fused_attention_fwd.launches == before + 1
     assert o.dtype == dtype and o.shape == q.shape
     ref = fused_attention_reference(q, k, v, h)
-    assert (o.float() - ref.float()).abs().max().item() <= atol
+    assert (o.float() - ref.float()).abs().max().item() <= ATTENTION_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,d", ATTENTION_BWD_SHAPES)
+def test_attention_backward_kernel_matches_plain_version(gen, dtype, b, t, h, d):
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    before = fused_attention_bwd.launches
+    got = fused_attention_bwd(q, k, v, do, h)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd.launches == before + 1
+    for g, want in zip(got, fused_attention_bwd_reference(q, k, v, do, h)):
+        assert g.dtype == dtype and g.shape == q.shape
+        assert (g.float() - want.float()).abs().max().item() <= ATTENTION_ATOL[dtype]
+        rel_l2 = ((g.float() - want.float()).norm() / want.float().norm()).item()
+        assert rel_l2 <= K4_REL_L2[dtype]
+
+
+def test_attention_gradient_goes_through_both_kernels(gen):
+    """Under grad, a CUDA call carries a grad_fn and its backward is K4; in f32 that is
+    the gradient of the plain forward."""
+    q, k, v = (torch.randn((3, 50, 128), generator=gen, device="cuda").requires_grad_(True)
+               for _ in range(3))
+    fwd, bwd = fused_attention_fwd.launches, fused_attention_bwd.launches
+    o = fused_attention(q, k, v, 2)
+    assert o.grad_fn is not None
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert (fused_attention_fwd.launches, fused_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    want = torch.autograd.grad(fused_attention_reference(q, k, v, 2), (q, k, v), do)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
 
 
 def test_attention_kernel_rejects_a_head_too_long_for_shared_memory(gen):
     q = torch.randn((1, 300, 64), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         fused_attention(q, q, q, 1)
+    q = q[:, :120].contiguous()  # K3 takes it; K4 does not
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_attention_bwd(q, q, q, q, 1)
 
 
 @pytest.mark.parametrize("size", [18, 0])
@@ -82,3 +188,66 @@ def test_encoder_on_the_card_matches_the_cpu(gen, size):
     obs = np.random.default_rng(0).integers(0, 256, (2, 3, 48, 80), dtype=np.uint8)
     got, want = cuda(obs).cpu(), cpu(obs)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("size,image_size", [(18, 32), (0, 64)])
+def test_every_parameter_gets_a_gradient_on_the_card(gen, size, image_size):
+    """One bf16 train step on the card: every trainable parameter, those before the stem
+    pool and every Q/K/V projection included, has a finite, non-zero gradient, and the
+    step went through the kernels of its backbone."""
+    cfg = R3MConfig(size=size, hidden_dim=64, langweight=1.0, image_size=image_size,
+                    compute_dtype="bfloat16")
+    torch.manual_seed(0)
+    bert = DistilBert(DistilBertConfig(vocab_size=100, n_layers=1, n_heads=4,
+                                       hidden_dim=128, max_position_embeddings=16))
+    state = create_train_state(cfg, 0)
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.integers(0, 256, (4, 5, image_size, image_size, 3), np.uint8),
+             "token_ids": rng.integers(0, 100, (4, 12)),
+             "attn_mask": np.ones((4, 12), np.int64), "lang_mask": np.ones(4, np.float32)}
+    counters = (maxpool_3x3s2_fwd, maxpool_3x3s2_bwd, fused_attention_fwd, fused_attention_bwd)
+    before = [c.launches for c in counters]
+    state, metrics = make_train_step(cfg, bert, doaug="rctraj")(state, batch)
+    assert torch.isfinite(metrics["full_loss"]).item()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == ([1, 1, 0, 0] if size else [0, 0, 12, 12])
+    for name, p in state.model.named_parameters():
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all() and (p.grad != 0).any(), name
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """The same f32 ResNet-18 step (TF32 off) from the same state, batch, permutations and
+    crops on the card and on the CPU: the loss to rtol 1e-4, each gradient leaf to
+    relative L2 error 1e-3 (what is left is the order of f32 sums)."""
+    cfg = R3MConfig(size=18, hidden_dim=64, langweight=1.0, image_size=32)
+    torch.manual_seed(0)
+    bert = DistilBert(DistilBertConfig(vocab_size=100, n_layers=1, n_heads=4,
+                                       hidden_dim=128, max_position_embeddings=16))
+    model = r3m_init(cfg, 0)
+    rng = np.random.default_rng(1)
+    batch = {"images": rng.integers(0, 256, (4, 5, 40, 48, 3), np.uint8),
+             "token_ids": rng.integers(0, 100, (4, 12)),
+             "attn_mask": np.ones((4, 12), np.int64), "lang_mask": np.ones(4, np.float32)}
+    perms = {"lang": torch.stack([torch.randperm(4) for _ in range(9)]).reshape(3, 3, 4),
+             "tcn": torch.stack([torch.randperm(4) for _ in range(6)]).reshape(3, 2, 4)}
+    crops = torch.tensor([[0, 0, 40, 48], [3, 5, 30, 33], [10, 2, 21, 25], [1, 9, 38, 39]],
+                         dtype=torch.float32)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cpu", "cuda"):
+            state = create_train_state(cfg, 0, model=copy.deepcopy(model), device=device)
+            step = make_train_step(cfg, copy.deepcopy(bert), doaug="rctraj", device=device)
+            state, metrics = step(state, batch, perms=perms, crops=crops)
+            out[device] = (float(metrics["full_loss"]),
+                           {n: p.grad.cpu() for n, p in state.model.named_parameters()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for name, want in out["cpu"][1].items():
+        got = out["cuda"][1][name]
+        floor = 1e-4 * max(g.norm().item() for g in out["cpu"][1].values())
+        err = (got - want).norm().item() / max(want.norm().item(), floor)
+        assert err <= 1e-3, f"{name}: relative L2 error {err}"

@@ -211,7 +211,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import pkgutil, sys, importlib, r3m_tpu_torch\n"
         "for m in pkgutil.walk_packages(r3m_tpu_torch.__path__, 'r3m_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'r3m_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'r3m_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
