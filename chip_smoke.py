@@ -5,15 +5,18 @@
 Phases, in order; any failure ends the run with a non-zero exit and no result line:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build every kernel of ``r3m_tpu_torch/csrc`` from the checkout's sources;
+2. build every kernel of ``r3m_tpu_torch/csrc`` from the checkout's sources, and print
+   what ``-Xptxas -v`` says of the bf16 attention kernels (registers, shared memory,
+   spills);
 3. each kernel against its plain PyTorch version on the card, at the shapes the serving
    and training paths give it, f32 and bf16, with the times of the kernel, the plain
    version and one library call, and the bound:
    K1 (stem max-pool, and under grad its int8 argmax, on an input full of ties) and K2
    (its backward) exact; K3 (fused attention) and K4 (its recompute-P backward) to a
-   stated atol, K4 also to a relative L2 error that tells whether it rounds where its
-   plain version does, and against autograd of K3's plain forward; under grad a CUDA call
-   carries a grad_fn and its backward is the kernel;
+   stated atol and to a relative L2 error that tells whether they round where their
+   plain versions do, K4 also against autograd of K3's plain forward; under grad a CUDA
+   call carries a grad_fn and its backward is the kernel; each row also gives the
+   kernel's time over the library call's (`library_ratio`);
 4. ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
    reference ``model.pt``), parity and fast: a few requests of 256 frames at 224 px and
    one of 240x320 frames; shapes, finiteness, fast-vs-parity cosine, agreement with the
@@ -65,16 +68,18 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 without tenso
 # K3/K4 against their plain versions, which round where the kernels do and sum in
 # another order: f32 rounding, or a few bf16 steps of values of order 1.
 ATTENTION_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# K4 rounds P and dU to bf16 where its plain version does, so only an element in a few
-# thousand lands one rounding step apart: each gradient agrees to relative L2 error 5e-4
-# (without those two roundings it would be ~3e-3 away, which the max abs error alone
+# K3 and K4 round P (and K4 dU) to bf16 where their plain versions do, so only an element
+# in a few thousand lands one rounding step apart: each output agrees to relative L2 error
+# 5e-4 (without K4's two roundings it would be ~3e-3 away, which the max abs error alone
 # cannot tell from one rounding step of a value near 2).
-K4_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+ATTENTION_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 # K4 against autograd of K3's plain forward, which keeps P and dU in f32: in bf16 the
 # kernel's two roundings add a few more steps.
 AUTOGRAD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 6e-2}
 DT_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAIN_ROW = "train_bf16"  # this slice's main path: the bf16 pretraining step
+# The tensor-core templates of K3 and K4, as their mangled names spell them.
+BF16_ATTENTION_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel")
 
 
 def log(msg: str) -> None:
@@ -107,8 +112,25 @@ def nbytes(*tensors: torch.Tensor) -> int:
 
 def row(err, kernel, plain, bound, library) -> dict:
     b, by = bound
-    return {"max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "bound_ms": b, "bound_by": by, "library_ms": time_ms(library)}
+    ms, library_ms = time_ms(kernel), time_ms(library)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": time_ms(plain), "bound_ms": b,
+            "bound_by": by, "library_ms": library_ms, "library_ratio": ms / library_ms}
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def ptxas_report(compiler_log: str, kernels) -> list:
+    """The lines ``-Xptxas -v`` printed for the entry functions whose (mangled) names
+    contain one of `kernels`."""
+    lines, keep = [], False
+    for line in compiler_log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            keep = any(k in line for k in kernels)
+        if keep:
+            lines.append(line.strip())
+    return lines
 
 
 def check_pool(gen) -> tuple:
@@ -203,8 +225,11 @@ def check_attention(gen) -> tuple:
             ref = fused_attention_reference(q, k, v, h)
             torch.cuda.synchronize()
             err = (o.float() - ref.float()).abs().max().item()
-            if not err <= ATTENTION_ATOL[dt]:
-                raise AssertionError(f"K3 {name}: max abs error {err} > {ATTENTION_ATOL[dt]}")
+            err_l2 = rel_l2(o, ref)
+            if not (err <= ATTENTION_ATOL[dt] and err_l2 <= ATTENTION_REL_L2[dt]):
+                raise AssertionError(
+                    f"K3 {name}: max abs error {err} (atol {ATTENTION_ATOL[dt]}) and "
+                    f"relative L2 error {err_l2} ({ATTENTION_REL_L2[dt]})")
             qh, kh, vh, doh = (x.view(b, t, h, d).transpose(1, 2) for x in (q, k, v, do))
             lib = F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2).reshape(b, t, -1)
             log(f"K3 {name}: max abs difference from SDPA (informative) "
@@ -214,8 +239,9 @@ def check_attention(gen) -> tuple:
                            lambda: fused_attention_reference(q, k, v, h),
                            bound_ms(nbytes(q, k, v, o), flops, dt),
                            lambda: F.scaled_dot_product_attention(qh, kh, vh))
-            log(f"K3 attention {name} {[b, t, h * d]} H={h}: atol {ATTENTION_ATOL[dt]}; "
-                f"{json.dumps(k3[name])}")
+            k3[name]["rel_l2_err"] = err_l2
+            log(f"K3 attention {name} {[b, t, h * d]} H={h}: atol {ATTENTION_ATOL[dt]}, "
+                f"relative L2 {ATTENTION_REL_L2[dt]}; {json.dumps(k3[name])}")
             if phase != "train":
                 continue
 
@@ -225,17 +251,15 @@ def check_attention(gen) -> tuple:
             auto = torch.autograd.grad(fused_attention_reference(*leaves, h), leaves, do)
             torch.cuda.synchronize()
             err = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, want))
-            rel_l2 = max(((g.float() - w.float()).norm() / w.float().norm()).item()
-                         for g, w in zip(grads, want))
+            err_l2 = max(rel_l2(g, w) for g, w in zip(grads, want))
             err_auto = max((g.float() - w.float()).abs().max().item()
                            for g, w in zip(grads, auto))
-            rel_l2_auto = max(((g.float() - w.float()).norm() / w.float().norm()).item()
-                              for g, w in zip(grads, auto))
-            if not (err <= ATTENTION_ATOL[dt] and rel_l2 <= K4_REL_L2[dt]
+            err_l2_auto = max(rel_l2(g, w) for g, w in zip(grads, auto))
+            if not (err <= ATTENTION_ATOL[dt] and err_l2 <= ATTENTION_REL_L2[dt]
                     and err_auto <= AUTOGRAD_ATOL[dt]):
                 raise AssertionError(
                     f"K4 {name}: max abs error {err} (atol {ATTENTION_ATOL[dt]}) and "
-                    f"relative L2 error {rel_l2} ({K4_REL_L2[dt]}) against the plain "
+                    f"relative L2 error {err_l2} ({ATTENTION_REL_L2[dt]}) against the plain "
                     f"backward, {err_auto} against autograd (atol {AUTOGRAD_ATOL[dt]})")
             out = fused_attention(*leaves, h)
             if out.grad_fn is None:
@@ -254,11 +278,11 @@ def check_attention(gen) -> tuple:
                 bound_ms(nbytes(q, k, v, do, *grads), 5 * flops // 2, dt),
                 lambda: torch.autograd.grad(lib_out, lib_in, doh, retain_graph=True),
             )
-            k4[name]["rel_l2_err"] = rel_l2
+            k4[name]["rel_l2_err"] = err_l2
             k4[name]["max_abs_err_vs_autograd"] = err_auto
-            k4[name]["rel_l2_err_vs_autograd"] = rel_l2_auto  # informative: no dU rounding
+            k4[name]["rel_l2_err_vs_autograd"] = err_l2_auto  # informative: no dU rounding
             log(f"K4 attention bwd {name} {[b, t, h * d]} H={h}: atol {ATTENTION_ATOL[dt]}, "
-                f"relative L2 {K4_REL_L2[dt]} (autograd {AUTOGRAD_ATOL[dt]}); "
+                f"relative L2 {ATTENTION_REL_L2[dt]} (autograd {AUTOGRAD_ATOL[dt]}); "
                 f"{json.dumps(k4[name])}")
             del grads, want, leaves, auto, out, got, lib_in, lib_out
     return k3, k4
@@ -532,6 +556,8 @@ def main() -> int:
     log(f"built {sorted(built)} in {time.perf_counter() - t_start:.1f} s")
     for name, (path, compiler_log) in built.items():
         log(f"{name}: {path}\n{compiler_log.strip()}")
+    report = ptxas_report(built["attention"][1], BF16_ATTENTION_KERNELS)
+    log("ptxas, bf16 attention kernels:\n" + "\n".join(report))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_rows, k2_rows = check_pool(gen)

@@ -4,7 +4,9 @@ Each ``r3m_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` int
 shared library of its own with a plain C interface: no PyTorch headers, so a build takes
 seconds. Libraries go to ``r3m_tpu_torch/build/`` (listed in ``.gitignore``) under a name
 that carries a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. `build` starts one ``nvcc`` per source, all at once.
+unchanged one is loaded as it is; the compiler's output (``-Xptxas -v``: registers,
+shared memory, spills) is kept beside it in ``<library>.log``. `build` starts one ``nvcc``
+per source, all at once.
 """
 
 from __future__ import annotations
@@ -56,8 +58,9 @@ def library_path(name: str) -> str:
 def build(names=KERNELS) -> Dict[str, Tuple[str, str]]:
     """Compile every named kernel source that has no library yet, in parallel.
 
-    Returns ``{name: (library path, compiler output)}``; the output is empty for a
-    library that was already built. Raises with the compiler's output if a build fails.
+    Returns ``{name: (library path, compiler output)}``; for a library that was already
+    built, the output kept from its build. Raises with the compiler's output if a build
+    fails.
     """
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = {}
@@ -65,7 +68,11 @@ def build(names=KERNELS) -> Dict[str, Tuple[str, str]]:
     for name in names:
         out = library_path(name)
         if os.path.exists(out):
-            done[name] = (out, "")
+            log = ""
+            if os.path.exists(f"{out}.log"):
+                with open(f"{out}.log") as f:
+                    log = f.read()
+            done[name] = (out, log)
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
@@ -83,6 +90,8 @@ def build(names=KERNELS) -> Dict[str, Tuple[str, str]]:
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
             continue
+        with open(f"{out}.log", "w") as f:
+            f.write(log)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         done[name] = (out, log)
     if failures:

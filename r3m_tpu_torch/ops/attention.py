@@ -5,9 +5,10 @@ Replaces the TPU kernel ``r3m_tpu/ops/attention.py`` (``_fwd_call`` and ``_bwd_c
 with their ``_kernel`` / ``_kernel_batched`` bodies, behind the custom-VJP
 ``fused_attention``), which the JAX ViT-B/32 forward runs in every layer. The Hopper
 kernels are in ``r3m_tpu_torch/csrc/attention.cu``: one block per (batch, head) reads the
-head's slices straight out of the packed tensors, keeps the T x T tiles in shared memory,
-and is bound by memory. The backward saves nothing but q, k and v and recomputes P. The
-source says more.
+head's slices straight out of the packed tensors and is bound by memory. bfloat16 runs on
+the tensor cores (``mma.sync``, T up to 128, D a multiple of 8 up to 128); float32 runs in
+true f32 on the CUDA cores, with a whole head and its T x T tiles in shared memory. The
+backward saves nothing but q, k and v and recomputes P. The source says more.
 
 Numerics, as in the TPU kernels: scores and softmax in f32, P cast to V's dtype before the
 product with V (and, in the backward, before dV), dU cast to q's dtype before dQ and dK,
@@ -33,6 +34,9 @@ from r3m_tpu_torch.ops._build import load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+# The bf16 kernels: a warp per 16 query rows, at most 8 warps; rows of 16-byte chunks.
+_BF16_MAX_T = 128
+_BF16_MAX_D = 128
 
 
 def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -132,10 +136,22 @@ def _check(name: str, n_heads: int, *xs: torch.Tensor) -> bool:
     return False
 
 
-def _check_smem(smem: int, t: int, d: int) -> None:
+def _check_kernel_shape(lib, xs, t: int, d: int, backward: bool) -> None:
+    """Raise for what the kernel of the operands' dtype does not take."""
+    if xs[0].dtype == torch.bfloat16:
+        if t > _BF16_MAX_T or d % 8 or d > _BF16_MAX_D:
+            raise ValueError(
+                f"the bf16 kernel takes T up to {_BF16_MAX_T} and D a multiple of 8 up to "
+                f"{_BF16_MAX_D}, got T={t}, D={d}"
+            )
+        if any(x.data_ptr() % 16 for x in xs):
+            raise ValueError("the bf16 kernel needs 16-byte aligned tensors")
+        return
+    smem = (lib.r3m_attention_bwd_smem_bytes(t, d) if backward
+            else lib.r3m_attention_smem_bytes(t, d))
     if smem > _SMEM_LIMIT:
         raise ValueError(
-            f"T={t}, D={d} needs {smem} bytes of shared memory per block; the kernel "
+            f"T={t}, D={d} needs {smem} bytes of shared memory per block; the f32 kernel "
             f"keeps a whole head on chip and takes at most {_SMEM_LIMIT}"
         )
 
@@ -147,14 +163,15 @@ def fused_attention_fwd(
 
     Head ``h`` occupies columns ``[h*D, (h+1)*D)``; the context comes back in the same
     packed layout. CUDA tensors must be contiguous float32 or bfloat16 of one shape and
-    dtype; they go through the Hopper kernel, never through the plain version.
+    dtype; they go through the Hopper kernel, never through the plain version. bfloat16
+    takes T up to 128 and D a multiple of 8 up to 128; float32 what fits in shared memory.
     """
     if _check("fused_attention", n_heads, q, k, v):
         return fused_attention_reference(q, k, v, n_heads)
     b, t, hd = q.shape
     d = hd // n_heads
     lib = _lib()
-    _check_smem(lib.r3m_attention_smem_bytes(t, d), t, d)
+    _check_kernel_shape(lib, (q, k, v), t, d, backward=False)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
@@ -183,7 +200,7 @@ def fused_attention_bwd(
     b, t, hd = q.shape
     d = hd // n_heads
     lib = _lib()
-    _check_smem(lib.r3m_attention_bwd_smem_bytes(t, d), t, d)
+    _check_kernel_shape(lib, (q, k, v, do), t, d, backward=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv

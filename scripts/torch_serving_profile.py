@@ -4,9 +4,12 @@
 
 For ResNet-50 and ViT-B/32 (seeded random weights, as chip_smoke.py makes them) in
 parity and fast precision: one warm-up request of uint8 frames at 224 px from host
-memory, then a profiled window of `--requests` requests. Prints, per cell, the wall time
-per request, the device's busy share of the window (the union of kernel intervals over
-the window), and the top device operations by self time. Needs one CUDA card.
+memory, a window of `--requests` requests without the profiler, then a profiled window
+of as many. Prints, per cell, the wall time per request of both windows, the device time
+per request (the union of kernel intervals in the profiled window), the device's busy
+share of each window (that device time over the window's wall time; the profiler's host
+tracing lowers the profiled one), and the top device operations by self time. Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -67,6 +70,11 @@ def main() -> int:
             enc = R3MEncoder(R3MConfig(size=size), sd, precision=precision)
             enc(frames)
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(args.requests):
+                enc(frames)
+            torch.cuda.synchronize()
+            wall_unprofiled = (time.perf_counter() - t0) * 1e3
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(args.requests):
@@ -81,8 +89,11 @@ def main() -> int:
             row = {
                 "cell": f"{name}/{precision}",
                 "batch": args.batch,
-                "ms_per_request": wall / args.requests,
-                "device_busy_share": busy / wall,
+                "ms_per_request_unprofiled": wall_unprofiled / args.requests,
+                "ms_per_request_profiled": wall / args.requests,
+                "device_ms_per_request": busy / args.requests,
+                "device_busy_share_unprofiled": busy / wall_unprofiled,
+                "device_busy_share_profiled": busy / wall,
                 "top_device_ops_ms_per_request": [
                     [e.key[:60], e.self_device_time_total / 1e3 / args.requests, e.count
                      // args.requests]

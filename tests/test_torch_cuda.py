@@ -39,10 +39,15 @@ ATTENTION_BWD_SHAPES = [(4, 50, 12, 64), (2, 10, 3, 8), (3, 7, 2, 16), (2, 100, 
 # K3/K4 sum in another order than their plain versions (which also round P and dU to
 # bf16): f32 agrees to rounding, bf16 to a few bf16 steps of values of order 1.
 ATTENTION_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# K4 rounds P and dU to bf16 where its plain version does, so only an element in a few
-# thousand lands one rounding step apart: each gradient agrees to relative L2 error 5e-4.
-# Without those roundings it would be ~3e-3 away.
-K4_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+# K3 and K4 round P (and K4 dU) to bf16 where their plain versions do, so only an element
+# in a few thousand lands one rounding step apart: each output agrees to relative L2 error
+# 5e-4. Without those roundings K4 would be ~3e-3 away.
+ATTENTION_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+# The bf16 kernels' tiles end at multiples of 16 rows and of 16 columns of D: T at D=64
+# and D at T=50 on either side of those edges, up to the limits T=128 and D=128. 16
+# frames, so that the relative L2 error counts many rounding steps and not a handful.
+EDGE_SHAPES = ([(16, t, 2, 64) for t in (1, 5, 15, 16, 17, 50, 64, 65, 127, 128)]
+               + [(16, 50, 2, d) for d in (8, 16, 32, 128)])
 
 
 @pytest.fixture
@@ -50,6 +55,14 @@ def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the kernels run only on CUDA tensors")
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _assert_close(got, want, dtype):
+    assert got.dtype == dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    assert (got - want).abs().max().item() <= ATTENTION_ATOL[dtype]
+    # relative L2 error, written so that an exact zero (dQ and dK at T=1) passes
+    assert (got - want).norm().item() <= ATTENTION_REL_L2[dtype] * want.norm().item()
 
 
 def _ties(gen, shape, dtype):
@@ -133,9 +146,7 @@ def test_attention_kernel_matches_plain_version(gen, dtype, b, t, h, d):
     o = fused_attention(q, k, v, h)
     torch.cuda.synchronize()
     assert fused_attention_fwd.launches == before + 1
-    assert o.dtype == dtype and o.shape == q.shape
-    ref = fused_attention_reference(q, k, v, h)
-    assert (o.float() - ref.float()).abs().max().item() <= ATTENTION_ATOL[dtype]
+    _assert_close(o, fused_attention_reference(q, k, v, h), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -148,10 +159,46 @@ def test_attention_backward_kernel_matches_plain_version(gen, dtype, b, t, h, d)
     torch.cuda.synchronize()
     assert fused_attention_bwd.launches == before + 1
     for g, want in zip(got, fused_attention_bwd_reference(q, k, v, do, h)):
-        assert g.dtype == dtype and g.shape == q.shape
-        assert (g.float() - want.float()).abs().max().item() <= ATTENTION_ATOL[dtype]
-        rel_l2 = ((g.float() - want.float()).norm() / want.float().norm()).item()
-        assert rel_l2 <= K4_REL_L2[dtype]
+        _assert_close(g, want, dtype)
+
+
+@pytest.mark.parametrize("b,t,h,d", EDGE_SHAPES)
+def test_bf16_attention_kernel_at_tile_edges(gen, b, t, h, d):
+    q, k, v = (torch.randn((b, t, h * d), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    o = fused_attention_fwd(q, k, v, h)
+    torch.cuda.synchronize()
+    _assert_close(o, fused_attention_reference(q, k, v, h), torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,t,h,d", EDGE_SHAPES)
+def test_bf16_attention_backward_kernel_at_tile_edges(gen, b, t, h, d):
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    got = fused_attention_bwd(q, k, v, do, h)
+    torch.cuda.synchronize()
+    for g, want in zip(got, fused_attention_bwd_reference(q, k, v, do, h)):
+        _assert_close(g, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("t", [17, 50, 64])
+def test_bf16_attention_kernels_stay_inside_their_frame(gen, t):
+    """Odd frames hold +-100 in Q, K, V and dO, and packed row T of an even frame is row 0
+    of the odd frame after it: a kernel that read or softmaxed past row T would get the
+    even frames wrong. They are held to the plain versions on the even frames alone."""
+    h, d = 2, 64
+    xs = [torch.randn((16, t, h * d), generator=gen, device="cuda") for _ in range(4)]
+    for x in xs:
+        x[1::2] = torch.randn(x[1::2].shape, generator=gen, device="cuda").sign() * 100.0
+    q, k, v, do = (x.bfloat16() for x in xs)
+    o = fused_attention_fwd(q, k, v, h)
+    grads = fused_attention_bwd(q, k, v, do, h)
+    torch.cuda.synchronize()
+    even = [x[::2].contiguous() for x in (q, k, v, do)]
+    _assert_close(o[::2], fused_attention_reference(*even[:3], h), torch.bfloat16)
+    for g, w in zip(grads, fused_attention_bwd_reference(*even, h)):
+        _assert_close(g[::2], w, torch.bfloat16)
+    assert all(torch.isfinite(x).all() for x in (o, *grads))
 
 
 def test_attention_gradient_goes_through_both_kernels(gen):
@@ -171,12 +218,23 @@ def test_attention_gradient_goes_through_both_kernels(gen):
 
 
 def test_attention_kernel_rejects_a_head_too_long_for_shared_memory(gen):
+    """f32 is bounded by shared memory, bf16 by its tiles: T up to 128, D a multiple of 8
+    up to 128, 16-byte aligned."""
     q = torch.randn((1, 300, 64), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         fused_attention(q, q, q, 1)
     q = q[:, :120].contiguous()  # K3 takes it; K4 does not
     with pytest.raises(ValueError, match="shared memory"):
         fused_attention_bwd(q, q, q, q, 1)
+    for shape in ((1, 129, 64), (1, 50, 12)):
+        q = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        with pytest.raises(ValueError, match="T up to 128 and D a multiple of 8"):
+            fused_attention(q, q, q, 1)
+        with pytest.raises(ValueError, match="T up to 128 and D a multiple of 8"):
+            fused_attention_bwd(q, q, q, q, 1)
+    q = torch.randn(50 * 64 + 1, generator=gen, device="cuda").bfloat16()[1:].view(1, 50, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_attention(q, q, q, 1)
 
 
 @pytest.mark.parametrize("size", [18, 0])

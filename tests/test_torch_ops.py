@@ -168,7 +168,14 @@ def test_pool_wrapper_on_cpu_uses_the_plain_version(rng):
         maxpool_3x3s2(x[0])
 
 
-@pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8), (6, 7, 2, 16)])
+# Where the bf16 kernels' tiles of 16 rows and 16 columns of D end: T on either side of
+# 16 and 64 and at the limit 128 (D=64), D at 8 and at the limit 128 (T=50).
+EDGE_SHAPES = ([(2, t, 2, 64) for t in (16, 17, 64, 65, 128)]
+               + [(2, 50, 2, d) for d in (8, 128)])
+
+
+@pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8), (6, 7, 2, 16),
+                                     *EDGE_SHAPES])
 def test_attention_reference_matches_pallas_kernel_f32(rng, b, t, h, d):
     q, k, v = (rng.standard_normal((b, t, h * d), dtype=np.float32) for _ in range(3))
     want = np.asarray(jax_fused_attention(
@@ -178,8 +185,8 @@ def test_attention_reference_matches_pallas_kernel_f32(rng, b, t, h, d):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
-def test_attention_reference_matches_pallas_kernel_bf16(rng):
-    b, t, h, d = 3, 50, 4, 16
+@pytest.mark.parametrize("b,t,h,d", [(3, 50, 4, 16), *EDGE_SHAPES])
+def test_attention_reference_matches_pallas_kernel_bf16(rng, b, t, h, d):
     q, k, v = (rng.standard_normal((b, t, h * d), dtype=np.float32) for _ in range(3))
     want = np.asarray(jax_fused_attention(
         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), h,
@@ -200,7 +207,7 @@ def _jax_attention_vjp(q, k, v, do, h):
     return [np.asarray(g.astype(jnp.float32)) for g in vjp(do)]
 
 
-@pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8)])
+@pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8), *EDGE_SHAPES])
 def test_attention_backward_matches_pallas_kernel_f32(rng, b, t, h, d):
     """K4's plain version, and the gradient through `fused_attention`, against the
     Pallas backward (interpret mode, the batched lowering the JAX trainer runs)."""
@@ -219,14 +226,14 @@ def _rel_l2(got: torch.Tensor, want: np.ndarray) -> float:
     return float(np.linalg.norm(_np(got) - want) / np.linalg.norm(want))
 
 
-def test_attention_backward_matches_pallas_kernel_bf16(rng):
+@pytest.mark.parametrize("b,t,h,d", [(3, 50, 4, 16), *EDGE_SHAPES])
+def test_attention_backward_matches_pallas_kernel_bf16(rng, b, t, h, d):
     """In bf16 P is rounded for dV and dU for dQ/dK, in both packages; the sums' order
     differs, so elements agree to a few ulps of values of order 1 (atol 0.05), and each
     gradient to relative L2 error 5e-4: an element in a few thousand lands one rounding
     step apart. Without those two roundings the gradients are ~3e-3 away, which the
     relative L2 bound tells apart, as the check on autograd of the plain forward (which
     does not round dU) shows."""
-    b, t, h, d = 3, 50, 4, 16
     q, k, v, do = (rng.standard_normal((b, t, h * d), dtype=np.float32) for _ in range(4))
     want = _jax_attention_vjp(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do)), h)
     qt, kt, vt, dot = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
