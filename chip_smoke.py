@@ -6,8 +6,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every kernel of ``r3m_tpu_torch/csrc`` from the checkout's sources, and print
-   what ``-Xptxas -v`` says of the bf16 attention kernels (registers, shared memory,
-   spills);
+   what ``-Xptxas -v`` says of the bf16 and the f32 attention kernels (registers, shared
+   memory, spills); the f32 ones must neither spill nor use a stack frame;
 3. each kernel against its plain PyTorch version on the card, at the shapes the serving
    and training paths give it, f32 and bf16, with the times of the kernel, the plain
    version and one library call, and the bound:
@@ -30,9 +30,11 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    parameter has a finite, non-zero gradient; train frames/s and peak device memory.
    Then a few more steps with the crops and negatives held fixed: the loss falls;
 7. the ViT-B/32 pretraining step, the same, with 12 launches of K3 and of K4 a step;
-8. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card (TF32 off) and on
+8. the ViT-B/32 pretraining step in f32 (TF32 off for matmuls and cuDNN), the same but
+   for 5 timed steps: the f32 K3 and K4 at full width, 12 launches of each a step;
+9. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card (TF32 off) and on
    the CPU from the same state, batch, permutations and crops: loss and gradients agree;
-9. one JSON line with every kernel's numbers, then the result line.
+10. one JSON line with every kernel's numbers, then the result line.
 
 Each path's launch counts are set to 0 just before it runs and read just after; the
 kernel checks of phase 3 are not counted. Uses no JAX: the port is checked against its
@@ -41,9 +43,11 @@ own plain versions and its CPU path.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -62,6 +66,7 @@ TRAIN_BATCH = TRAIN_CLIPS * FRAMES
 LANG_LEN = 32
 WARMUP_STEPS = 2
 TIMED_STEPS = 10
+TIMED_STEPS_F32 = 5
 LEARN_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 without tensor cores
@@ -78,8 +83,10 @@ ATTENTION_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 AUTOGRAD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 6e-2}
 DT_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAIN_ROW = "train_bf16"  # this slice's main path: the bf16 pretraining step
-# The tensor-core templates of K3 and K4, as their mangled names spell them.
+# K3 and K4, as their mangled names spell them: the tensor-core templates (bf16) and the
+# CUDA-core kernels (f32).
 BF16_ATTENTION_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel")
+F32_ATTENTION_KERNELS = ("attention_fwd_f32_kernel", "attention_bwd_f32_kernel")
 
 
 def log(msg: str) -> None:
@@ -131,6 +138,24 @@ def ptxas_report(compiler_log: str, kernels) -> list:
         if keep:
             lines.append(line.strip())
     return lines
+
+
+def spills(report: list) -> list:
+    """The non-zero stack frame, spill store and spill load sizes in ptxas lines."""
+    return [m.group(0) for line in report
+            for m in re.finditer(r"(\d+) bytes (stack frame|spill stores|spill loads)", line)
+            if int(m.group(1))]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 matmuls and convolutions in full f32, as the parity contract asks."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def check_pool(gen) -> tuple:
@@ -413,16 +438,18 @@ def check_gradients(name: str, model: torch.nn.Module) -> int:
     return sum(1 for _ in model.parameters())
 
 
-def train(name: str, size: int, bert, gen) -> dict:
-    """The bf16 pretraining step at full width: warm-up steps, then timed steps on one
-    repeated batch (fresh crops and negatives each step, from the state's generator)."""
+def train(name: str, size: int, bert, gen, dtype: str = "bfloat16",
+          timed_steps: int = TIMED_STEPS) -> dict:
+    """The pretraining step at full width in `dtype`: warm-up steps, then timed steps on
+    one repeated batch (fresh crops and negatives each step, from the state's
+    generator)."""
     from r3m_tpu_torch.data.augment import sample_crop_params
     from r3m_tpu_torch.losses import draw_permutations
     from r3m_tpu_torch.models.r3m import R3MConfig
     from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
 
     cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
-                    num_negatives=3, lr=1e-4, compute_dtype="bfloat16")
+                    num_negatives=3, lr=1e-4, compute_dtype=dtype)
     state = create_train_state(cfg, SEED)
     step = make_train_step(cfg, bert, doaug="rctraj")
     batch = train_batch(gen, TRAIN_CLIPS, 224, bert.cfg.vocab_size, LANG_LEN)
@@ -432,7 +459,7 @@ def train(name: str, size: int, bert, gen) -> dict:
 
     reset_counts()
     losses = []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
+    for i in range(WARMUP_STEPS + timed_steps):
         if i == WARMUP_STEPS:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -440,7 +467,7 @@ def train(name: str, size: int, bert, gen) -> dict:
         losses.append(float(metrics["full_loss"]))  # waits for the step
     elapsed = time.perf_counter() - t0
     launches = read_counts()
-    steps = WARMUP_STEPS + TIMED_STEPS
+    steps = WARMUP_STEPS + timed_steps
 
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{name} train: non-finite loss {losses}")
@@ -463,6 +490,7 @@ def train(name: str, size: int, bert, gen) -> dict:
     if not (all(np.isfinite(fixed)) and fixed[-1] < fixed[0]):
         raise AssertionError(f"{name} train: with fixed draws the loss did not fall: {fixed}")
     result = {
+        "dtype": dtype,
         "launches": launches,
         "steps": steps,
         "clips": TRAIN_CLIPS,
@@ -470,8 +498,8 @@ def train(name: str, size: int, bert, gen) -> dict:
         "losses": losses,
         "losses_fixed_draws": fixed,
         "metrics": {k: float(v) for k, v in metrics.items()},
-        "train_frames_per_s": TIMED_STEPS * TRAIN_BATCH / elapsed,
-        "ms_per_step": elapsed / TIMED_STEPS * 1e3,
+        "train_frames_per_s": timed_steps * TRAIN_BATCH / elapsed,
+        "ms_per_step": elapsed / timed_steps * 1e3,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "params_with_gradient": n_params,
     }
@@ -508,9 +536,7 @@ def cuda_against_cpu(size: int, image_size: int) -> dict:
     crops = torch.tensor([[0, 0, hw, hw], [3, 5, hw - 6, hw - 9], [2, 2, hw // 2, hw // 2],
                           [1, 4, hw - 2, hw - 5]], dtype=torch.float32)
     out = {}
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         for device in ("cpu", "cuda"):
             state = create_train_state(cfg, SEED, model=copy.deepcopy(model), device=device)
             step = make_train_step(cfg, copy.deepcopy(bert), doaug="rctraj", device=device)
@@ -518,8 +544,6 @@ def cuda_against_cpu(size: int, image_size: int) -> dict:
             out[device] = (float(metrics["full_loss"]),
                            {n: p.grad.cpu().double() for n, p in
                             state.model.named_parameters()})
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out["cpu"], out["cuda"]
     floor = 1e-4 * max(g.norm().item() for g in g_cpu.values())
     errs = {n: (g_gpu[n] - w).norm().item() / max(w.norm().item(), floor)
@@ -558,6 +582,10 @@ def main() -> int:
         log(f"{name}: {path}\n{compiler_log.strip()}")
     report = ptxas_report(built["attention"][1], BF16_ATTENTION_KERNELS)
     log("ptxas, bf16 attention kernels:\n" + "\n".join(report))
+    report = ptxas_report(built["attention"][1], F32_ATTENTION_KERNELS)
+    log("ptxas, f32 attention kernels:\n" + "\n".join(report))
+    if not report or spills(report):
+        raise AssertionError(f"f32 attention kernels: ptxas reports {spills(report)}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_rows, k2_rows = check_pool(gen)
@@ -586,6 +614,9 @@ def main() -> int:
     bert = DistilBert().to("cuda")  # distilbert-base geometry, seeded random weights
     paths["train_resnet50"] = train("resnet50", 50, bert, gen)
     paths["train_vit_b32"] = train("vit_b32", 0, bert, gen)
+    with no_tf32():
+        paths["train_vit_b32_f32"] = train("vit_b32_f32", 0, bert, gen, "float32",
+                                           TIMED_STEPS_F32)
     del bert
     torch.cuda.empty_cache()
     for size, image_size in ((18, 32), (0, 64)):

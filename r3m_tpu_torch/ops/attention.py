@@ -6,9 +6,12 @@ with their ``_kernel`` / ``_kernel_batched`` bodies, behind the custom-VJP
 ``fused_attention``), which the JAX ViT-B/32 forward runs in every layer. The Hopper
 kernels are in ``r3m_tpu_torch/csrc/attention.cu``: one block per (batch, head) reads the
 head's slices straight out of the packed tensors and is bound by memory. bfloat16 runs on
-the tensor cores (``mma.sync``, T up to 128, D a multiple of 8 up to 128); float32 runs in
-true f32 on the CUDA cores, with a whole head and its T x T tiles in shared memory. The
-backward saves nothing but q, k and v and recomputes P. The source says more.
+the tensor cores (``mma.sync``, T up to 128, D a multiple of 8 up to 128). float32 runs in
+true f32 (``fmaf``, no TF32) on the CUDA cores, with a whole head and its T x T tiles in
+shared memory and every product tiled in 4 x 4 register blocks read as float4, half a
+shared-memory float per FMA; any D, and T as far as shared memory goes (at D = 64, T up to
+156 forward and 124 backward). Both take 16-byte aligned tensors. The backward saves
+nothing but q, k and v and recomputes P. The source says more.
 
 Numerics, as in the TPU kernels: scores and softmax in f32, P cast to V's dtype before the
 product with V (and, in the backward, before dV), dU cast to q's dtype before dQ and dK,
@@ -37,6 +40,8 @@ _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 # The bf16 kernels: a warp per 16 query rows, at most 8 warps; rows of 16-byte chunks.
 _BF16_MAX_T = 128
 _BF16_MAX_D = 128
+# The f32 kernels' longest head at D = 64, forward and backward, by their shared memory.
+_F32_MAX_T_AT_64 = {False: 156, True: 124}
 
 
 def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -138,21 +143,22 @@ def _check(name: str, n_heads: int, *xs: torch.Tensor) -> bool:
 
 def _check_kernel_shape(lib, xs, t: int, d: int, backward: bool) -> None:
     """Raise for what the kernel of the operands' dtype does not take."""
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError("the attention kernels need 16-byte aligned tensors")
     if xs[0].dtype == torch.bfloat16:
         if t > _BF16_MAX_T or d % 8 or d > _BF16_MAX_D:
             raise ValueError(
                 f"the bf16 kernel takes T up to {_BF16_MAX_T} and D a multiple of 8 up to "
                 f"{_BF16_MAX_D}, got T={t}, D={d}"
             )
-        if any(x.data_ptr() % 16 for x in xs):
-            raise ValueError("the bf16 kernel needs 16-byte aligned tensors")
         return
     smem = (lib.r3m_attention_bwd_smem_bytes(t, d) if backward
             else lib.r3m_attention_smem_bytes(t, d))
     if smem > _SMEM_LIMIT:
         raise ValueError(
-            f"T={t}, D={d} needs {smem} bytes of shared memory per block; the f32 kernel "
-            f"keeps a whole head on chip and takes at most {_SMEM_LIMIT}"
+            f"T={t}, D={d} needs {smem} bytes of shared memory per block; the f32 kernels "
+            f"keep a whole head on chip and take at most {_SMEM_LIMIT} (at D=64: T up to "
+            f"{_F32_MAX_T_AT_64[backward]})"
         )
 
 
@@ -163,8 +169,9 @@ def fused_attention_fwd(
 
     Head ``h`` occupies columns ``[h*D, (h+1)*D)``; the context comes back in the same
     packed layout. CUDA tensors must be contiguous float32 or bfloat16 of one shape and
-    dtype; they go through the Hopper kernel, never through the plain version. bfloat16
-    takes T up to 128 and D a multiple of 8 up to 128; float32 what fits in shared memory.
+    dtype, 16-byte aligned; they go through the Hopper kernel, never through the plain
+    version. bfloat16 takes T up to 128 and D a multiple of 8 up to 128; float32 any D and
+    what fits in shared memory (at D = 64, T up to 156; 124 for the backward).
     """
     if _check("fused_attention", n_heads, q, k, v):
         return fused_attention_reference(q, k, v, n_heads)

@@ -1,11 +1,12 @@
 """Where the port's pretraining step spends its time on the card: a torch.profiler
 breakdown.
 
-    python3 scripts/torch_train_profile.py [--steps 3]
+    python3 scripts/torch_train_profile.py [--steps 3] [--dtype bfloat16|float32]
 
-For the bf16 ResNet-50 and ViT-B/32 steps in chip_smoke.py's configuration (64 clips of
-5 random uint8 frames at 224 px on the device, rctraj, language + TCN + L1/L2 losses, Adam
-1e-4, a frozen DistilBERT of base geometry with seeded random weights): two warm-up steps,
+For the ResNet-50 and ViT-B/32 steps in chip_smoke.py's configuration (64 clips of 5
+random uint8 frames at 224 px on the device, rctraj, language + TCN + L1/L2 losses, Adam
+1e-4, a frozen DistilBERT of base geometry with seeded random weights), in bf16 or in f32
+with TF32 off for matmuls and cuDNN (the parity contract's f32): two warm-up steps,
 a window of `--steps` steps without the profiler, then a profiled window of as many
 steps. Prints, per backbone, the wall time per step of both windows, the device time per
 step (the union of kernel intervals in the profiled window), the device's busy share of
@@ -49,6 +50,7 @@ def top(events, steps: int, n: int = 12) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -73,9 +75,11 @@ def main() -> int:
         "lang_mask": torch.ones(CLIPS, device="cuda"),
     }
     frames = CLIPS * 5
+    if args.dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     for size, name in ((50, "resnet50"), (0, "vit_b32")):
         cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
-                        compute_dtype="bfloat16")
+                        compute_dtype=args.dtype)
         state = create_train_state(cfg, SEED)
         step = make_train_step(cfg, bert, doaug="rctraj")
         for _ in range(2):
@@ -102,7 +106,7 @@ def main() -> int:
         on_device = [e for e in averages if e.device_type == DeviceType.CUDA]
         ops = [e for e in averages if e.device_type != DeviceType.CUDA]
         row = {
-            "cell": f"train/{name}/bf16",
+            "cell": f"train/{name}/{'f32' if args.dtype == 'float32' else 'bf16'}",
             "clips": CLIPS,
             "frames_per_step": frames,
             "ms_per_step_unprofiled": wall_unprofiled / args.steps,

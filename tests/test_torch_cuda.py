@@ -48,6 +48,14 @@ ATTENTION_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 # frames, so that the relative L2 error counts many rounding steps and not a handful.
 EDGE_SHAPES = ([(16, t, 2, 64) for t in (1, 5, 15, 16, 17, 50, 64, 65, 127, 128)]
                + [(16, 50, 2, d) for d in (8, 16, 32, 128)])
+# The f32 kernels' micro-tiles end at multiples of 4 rows and of 4 columns of D: T at D=64
+# on either side of those edges and at the longest head each kernel takes (156 forward,
+# 124 backward), D at T=50 on either side of multiples of 4 and 8 (D % 4 != 0 takes the
+# 4-byte load path).
+F32_EDGE_T = (1, 3, 4, 5, 7, 8, 9, 50, 63, 64, 65, 100)
+F32_EDGE_D = [(16, 50, 2, d) for d in (4, 6, 12, 32, 128)]
+F32_EDGE_SHAPES = [(16, t, 2, 64) for t in (*F32_EDGE_T, 127, 128, 156)] + F32_EDGE_D
+F32_EDGE_BWD_SHAPES = [(16, t, 2, 64) for t in (*F32_EDGE_T, 124)] + F32_EDGE_D
 
 
 @pytest.fixture
@@ -181,8 +189,26 @@ def test_bf16_attention_backward_kernel_at_tile_edges(gen, b, t, h, d):
         _assert_close(g, want, torch.bfloat16)
 
 
+@pytest.mark.parametrize("b,t,h,d", F32_EDGE_SHAPES)
+def test_f32_attention_kernel_at_tile_edges(gen, b, t, h, d):
+    q, k, v = (torch.randn((b, t, h * d), generator=gen, device="cuda") for _ in range(3))
+    o = fused_attention_fwd(q, k, v, h)
+    torch.cuda.synchronize()
+    _assert_close(o, fused_attention_reference(q, k, v, h), torch.float32)
+
+
+@pytest.mark.parametrize("b,t,h,d", F32_EDGE_BWD_SHAPES)
+def test_f32_attention_backward_kernel_at_tile_edges(gen, b, t, h, d):
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device="cuda") for _ in range(4))
+    got = fused_attention_bwd(q, k, v, do, h)
+    torch.cuda.synchronize()
+    for g, want in zip(got, fused_attention_bwd_reference(q, k, v, do, h)):
+        _assert_close(g, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t", [17, 50, 64])
-def test_bf16_attention_kernels_stay_inside_their_frame(gen, t):
+def test_attention_kernels_stay_inside_their_frame(gen, dtype, t):
     """Odd frames hold +-100 in Q, K, V and dO, and packed row T of an even frame is row 0
     of the odd frame after it: a kernel that read or softmaxed past row T would get the
     even frames wrong. They are held to the plain versions on the even frames alone."""
@@ -190,14 +216,14 @@ def test_bf16_attention_kernels_stay_inside_their_frame(gen, t):
     xs = [torch.randn((16, t, h * d), generator=gen, device="cuda") for _ in range(4)]
     for x in xs:
         x[1::2] = torch.randn(x[1::2].shape, generator=gen, device="cuda").sign() * 100.0
-    q, k, v, do = (x.bfloat16() for x in xs)
+    q, k, v, do = (x.to(dtype) for x in xs)
     o = fused_attention_fwd(q, k, v, h)
     grads = fused_attention_bwd(q, k, v, do, h)
     torch.cuda.synchronize()
     even = [x[::2].contiguous() for x in (q, k, v, do)]
-    _assert_close(o[::2], fused_attention_reference(*even[:3], h), torch.bfloat16)
+    _assert_close(o[::2], fused_attention_reference(*even[:3], h), dtype)
     for g, w in zip(grads, fused_attention_bwd_reference(*even, h)):
-        _assert_close(g[::2], w, torch.bfloat16)
+        _assert_close(g[::2], w, dtype)
     assert all(torch.isfinite(x).all() for x in (o, *grads))
 
 
@@ -218,14 +244,19 @@ def test_attention_gradient_goes_through_both_kernels(gen):
 
 
 def test_attention_kernel_rejects_a_head_too_long_for_shared_memory(gen):
-    """f32 is bounded by shared memory, bf16 by its tiles: T up to 128, D a multiple of 8
-    up to 128, 16-byte aligned."""
-    q = torch.randn((1, 300, 64), generator=gen, device="cuda")
+    """f32 is bounded by shared memory, at D=64 to T up to 156 forward and 124 backward
+    (the edge tests run both limits); bf16 by its tiles: T up to 128, D a multiple of 8 up
+    to 128. Both need 16-byte aligned tensors."""
+    q = torch.randn((1, 157, 64), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         fused_attention(q, q, q, 1)
-    q = q[:, :120].contiguous()  # K3 takes it; K4 does not
+    q = q[:, :125].contiguous()  # K3 takes it; K4 does not
+    fused_attention_fwd(q, q, q, 1)
     with pytest.raises(ValueError, match="shared memory"):
         fused_attention_bwd(q, q, q, q, 1)
+    q = torch.randn(50 * 64 + 1, generator=gen, device="cuda")[1:].view(1, 50, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_attention(q, q, q, 1)
     for shape in ((1, 129, 64), (1, 50, 12)):
         q = torch.randn(shape, generator=gen, device="cuda").bfloat16()
         with pytest.raises(ValueError, match="T up to 128 and D a multiple of 8"):

@@ -172,10 +172,14 @@ def test_pool_wrapper_on_cpu_uses_the_plain_version(rng):
 # 16 and 64 and at the limit 128 (D=64), D at 8 and at the limit 128 (T=50).
 EDGE_SHAPES = ([(2, t, 2, 64) for t in (16, 17, 64, 65, 128)]
                + [(2, 50, 2, d) for d in (8, 128)])
+# Where the f32 kernels' 4 x 4 micro-tiles end: T on either side of multiples of 4 (D=64),
+# and D not a multiple of 4 (the kernels' 4-byte load path).
+F32_EDGE_SHAPES = ([(2, t, 2, 64) for t in (1, 3, 4, 5, 9)]
+                   + [(2, 50, 2, 12), (2, 50, 2, 6), (2, 9, 3, 6)])
 
 
 @pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8), (6, 7, 2, 16),
-                                     *EDGE_SHAPES])
+                                     *EDGE_SHAPES, *F32_EDGE_SHAPES])
 def test_attention_reference_matches_pallas_kernel_f32(rng, b, t, h, d):
     q, k, v = (rng.standard_normal((b, t, h * d), dtype=np.float32) for _ in range(3))
     want = np.asarray(jax_fused_attention(
@@ -207,7 +211,8 @@ def _jax_attention_vjp(q, k, v, do, h):
     return [np.asarray(g.astype(jnp.float32)) for g in vjp(do)]
 
 
-@pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8), *EDGE_SHAPES])
+@pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8), *EDGE_SHAPES,
+                                     *F32_EDGE_SHAPES])
 def test_attention_backward_matches_pallas_kernel_f32(rng, b, t, h, d):
     """K4's plain version, and the gradient through `fused_attention`, against the
     Pallas backward (interpret mode, the batched lowering the JAX trainer runs)."""
