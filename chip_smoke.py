@@ -6,17 +6,20 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every kernel of ``r3m_tpu_torch/csrc`` from the checkout's sources, and print
-   what ``-Xptxas -v`` says of the bf16 and the f32 attention kernels (registers, shared
-   memory, spills); the f32 ones must neither spill nor use a stack frame;
+   what ``-Xptxas -v`` says of the maxpool, the bf16 and the f32 attention kernels
+   (registers, shared memory, spills); the maxpool and f32 attention kernels must neither
+   spill nor use a stack frame;
 3. each kernel against its plain PyTorch version on the card, at the shapes the serving
    and training paths give it, f32 and bf16, with the times of the kernel, the plain
    version and one library call, and the bound:
-   K1 (stem max-pool, and under grad its int8 argmax, on an input full of ties) and K2
+   K1 (stem max-pool, with and without its int8 argmax, on an input full of ties) and K2
    (its backward) exact; K3 (fused attention) and K4 (its recompute-P backward) to a
    stated atol and to a relative L2 error that tells whether they round where their
    plain versions do, K4 also against autograd of K3's plain forward; under grad a CUDA
    call carries a grad_fn and its backward is the kernel; each row also gives the
-   kernel's time over the library call's (`library_ratio`);
+   kernel's time over the library call's (`library_ratio`), the bound over the kernel's
+   time (`bound_share`) and the bytes the function must move over the kernel's time
+   (`gbytes_per_s`);
 4. ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
    reference ``model.pt``), parity and fast: a few requests of 256 frames at 224 px and
    one of 240x320 frames; shapes, finiteness, fast-vs-parity cosine, agreement with the
@@ -83,8 +86,9 @@ ATTENTION_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 AUTOGRAD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 6e-2}
 DT_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAIN_ROW = "train_bf16"  # this slice's main path: the bf16 pretraining step
-# K3 and K4, as their mangled names spell them: the tensor-core templates (bf16) and the
-# CUDA-core kernels (f32).
+# The kernels as their mangled names spell them: K1 and K2; K3 and K4's tensor-core
+# templates (bf16) and CUDA-core kernels (f32).
+POOL_KERNELS = ("maxpool3x3s2_kernel", "maxpool3x3s2_bwd_kernel")
 BF16_ATTENTION_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel")
 F32_ATTENTION_KERNELS = ("attention_fwd_f32_kernel", "attention_bwd_f32_kernel")
 
@@ -117,11 +121,14 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def row(err, kernel, plain, bound, library) -> dict:
-    b, by = bound
+def row(err, kernel, plain, moved: int, flops: float, dtype, library) -> dict:
+    """A kernel's numbers: `moved` is the bytes the function must move (each input read
+    once, each output written once), `flops` its operations."""
+    b, by = bound_ms(moved, flops, dtype)
     ms, library_ms = time_ms(kernel), time_ms(library)
     return {"max_abs_err": err, "ms": ms, "plain_ms": time_ms(plain), "bound_ms": b,
-            "bound_by": by, "library_ms": library_ms, "library_ratio": ms / library_ms}
+            "bound_by": by, "bound_share": b / ms, "gbytes_per_s": moved / ms / 1e6,
+            "library_ms": library_ms, "library_ratio": ms / library_ms}
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -159,8 +166,9 @@ def no_tf32():
 
 
 def check_pool(gen) -> tuple:
-    """K1 at the serving shape (no argmax) and the training shape (with the argmax, on
-    an input full of ties), then K2 at the training shape; both exact."""
+    """K1 at the serving and the training shape, with and without its argmax, on an input
+    full of ties, timed as each path runs it (serving without the argmax, training with
+    it), then K2 at the training shape; both exact."""
     from r3m_tpu_torch.ops.pool import (
         maxpool_3x3s2,
         maxpool_3x3s2_bwd,
@@ -174,27 +182,27 @@ def check_pool(gen) -> tuple:
         for dt in (torch.float32, torch.bfloat16):
             name = f"{phase}_{DT_NAMES[dt]}"
             shape = (batch, 112, 112, 64)  # the ResNet stem after conv1, NHWC
-            x = torch.randn(shape, generator=gen, device="cuda")
-            if phase == "train":  # relu(randn).round(): ties in most windows
-                x = x.clamp_min(0).round()
-            x = x.to(dt)
-            argmax = phase == "train"
-            y, idx = maxpool_3x3s2_fwd(x, argmax=argmax)
+            # relu(randn).round(): ties in most windows
+            x = torch.randn(shape, generator=gen, device="cuda").clamp_min(0).round().to(dt)
+            y, idx = maxpool_3x3s2_fwd(x, argmax=True)
+            y_only, _ = maxpool_3x3s2_fwd(x)
             ref, ref_idx = maxpool_3x3s2_reference(x)
             torch.cuda.synchronize()
-            if not torch.equal(y, ref) or (argmax and not torch.equal(idx, ref_idx)):
+            if not (torch.equal(y, ref) and torch.equal(y_only, ref)
+                    and torch.equal(idx, ref_idx)):
                 raise AssertionError(f"K1 {name}: kernel differs from its plain version")
+            argmax = phase == "train"
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last NCHW view of the same memory
             outs = (y, idx) if argmax else (y,)
             k1[name] = row(
                 (y.float() - ref.float()).abs().max().item(),
                 lambda: maxpool_3x3s2_fwd(x, argmax=argmax),
                 lambda: maxpool_3x3s2_reference(x),
-                bound_ms(nbytes(x, *outs), 9 * y.numel(), dt),
+                nbytes(x, *outs), 9 * y.numel(), dt,
                 lambda: F.max_pool2d(x_nchw, 3, 2, 1, return_indices=argmax),
             )
-            log(f"K1 maxpool {name} {list(shape)}{' +argmax, ties' if argmax else ''}: "
-                f"exact; {json.dumps(k1[name])}")
+            log(f"K1 maxpool {name} {list(shape)}, ties: exact with and without the argmax; "
+                f"timed {'with' if argmax else 'without'} it; {json.dumps(k1[name])}")
             if phase != "train":
                 continue
 
@@ -219,13 +227,13 @@ def check_pool(gen) -> tuple:
                 (dx.float() - want.float()).abs().max().item(),
                 lambda: maxpool_3x3s2_bwd(idx, dy, h, w),
                 lambda: maxpool_3x3s2_bwd_reference(idx, dy, h, w),
-                bound_ms(nbytes(dy, idx, dx), 4 * dx.numel(), dt),
+                nbytes(dy, idx, dx), 4 * dx.numel(), dt,
                 lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                     dy_nchw, x_nchw, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx),
             )
             log(f"K2 maxpool bwd {name} dy {list(dy.shape)} -> dx {list(shape)}: exact; "
                 f"{json.dumps(k2[name])}")
-            del x, y, idx, ref, ref_idx, dy, dx, want, leaf, out, lib_idx
+            del x, y, y_only, idx, ref, ref_idx, dy, dx, want, leaf, out, lib_idx
     return k1, k2
 
 
@@ -262,7 +270,7 @@ def check_attention(gen) -> tuple:
             flops = 2 * b * h * 2 * t * t * d
             k3[name] = row(err, lambda: fused_attention_fwd(q, k, v, h),
                            lambda: fused_attention_reference(q, k, v, h),
-                           bound_ms(nbytes(q, k, v, o), flops, dt),
+                           nbytes(q, k, v, o), flops, dt,
                            lambda: F.scaled_dot_product_attention(qh, kh, vh))
             k3[name]["rel_l2_err"] = err_l2
             log(f"K3 attention {name} {[b, t, h * d]} H={h}: atol {ATTENTION_ATOL[dt]}, "
@@ -300,7 +308,7 @@ def check_attention(gen) -> tuple:
                 err,
                 lambda: fused_attention_bwd(q, k, v, do, h),
                 lambda: fused_attention_bwd_reference(q, k, v, do, h),
-                bound_ms(nbytes(q, k, v, do, *grads), 5 * flops // 2, dt),
+                nbytes(q, k, v, do, *grads), 5 * flops // 2, dt,
                 lambda: torch.autograd.grad(lib_out, lib_in, doh, retain_graph=True),
             )
             k4[name]["rel_l2_err"] = err_l2
@@ -582,10 +590,12 @@ def main() -> int:
         log(f"{name}: {path}\n{compiler_log.strip()}")
     report = ptxas_report(built["attention"][1], BF16_ATTENTION_KERNELS)
     log("ptxas, bf16 attention kernels:\n" + "\n".join(report))
-    report = ptxas_report(built["attention"][1], F32_ATTENTION_KERNELS)
-    log("ptxas, f32 attention kernels:\n" + "\n".join(report))
-    if not report or spills(report):
-        raise AssertionError(f"f32 attention kernels: ptxas reports {spills(report)}")
+    for what, lib, names in (("maxpool kernels", "maxpool", POOL_KERNELS),
+                             ("f32 attention kernels", "attention", F32_ATTENTION_KERNELS)):
+        report = ptxas_report(built[lib][1], names)
+        log(f"ptxas, {what}:\n" + "\n".join(report))
+        if not report or spills(report):
+            raise AssertionError(f"{what}: ptxas reports {spills(report)}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_rows, k2_rows = check_pool(gen)

@@ -8,8 +8,9 @@ memory, a window of `--requests` requests without the profiler, then a profiled 
 of as many. Prints, per cell, the wall time per request of both windows, the device time
 per request (the union of kernel intervals in the profiled window), the device's busy
 share of each window (that device time over the window's wall time; the profiler's host
-tracing lowers the profiled one), and the top device operations by self time. Needs one
-CUDA card.
+tracing lowers the profiled one), the top device operations by self time, and the device
+kernels that ran just before and just after each of the port's kernels (a layout copy
+beside K1 would show there). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -19,20 +20,32 @@ import json
 import os
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+# What the profiler's names of the port's hand kernels (csrc/*.cu) contain: K3 and K4 have
+# an f32 and a bf16 template each.
+PORT_KERNELS = {"K1": "maxpool3x3s2_kernel<", "K2": "maxpool3x3s2_bwd_kernel<",
+                "K3": "attention_fwd_", "K4": "attention_bwd_"}
+
+
+def device_kernels(prof) -> list:
+    """The card's work: kernels, copies and sets. Not the device-side records that are
+    none: a user annotation's span (the optimizer step's includes the idle gaps between
+    its kernels) and CUPTI's own buffer requests."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name != "Activity Buffer Request"]
+
 
 def busy_ms(prof) -> float:
     """Union of the device kernels' intervals, in ms."""
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_kernels(prof))
     total, cur_s, cur_e = 0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -44,6 +57,29 @@ def busy_ms(prof) -> float:
     if cur_e is not None:
         total += cur_e - cur_s
     return total / 1e3  # us -> ms
+
+
+def neighbours(prof) -> dict:
+    """For each port kernel that ran: ``{"before": {name: [count, mean us]}, "after":
+    {...}}``, the device kernels that ran just before and just after its launches, in
+    device order. The time tells a layout copy of an activation (tens of us and more at
+    these shapes) from a cast of a weight's gradient (a few us)."""
+    kernels = sorted(device_kernels(prof), key=lambda e: e.time_range.start)
+    out = {}
+    for key, pattern in PORT_KERNELS.items():
+        sides = {"before": (Counter(), Counter()), "after": (Counter(), Counter())}
+        for i, e in enumerate(kernels):
+            if pattern not in e.name:
+                continue
+            for side, j in (("before", i - 1), ("after", i + 1)):
+                if 0 <= j < len(kernels):
+                    count, us = sides[side]
+                    count[kernels[j].name[:70]] += 1
+                    us[kernels[j].name[:70]] += kernels[j].time_range.elapsed_us()
+        if any(count for count, _ in sides.values()):
+            out[key] = {side: {n: [c, us[n] / c] for n, c in count.items()}
+                        for side, (count, us) in sides.items()}
+    return out
 
 
 def main() -> int:
@@ -99,6 +135,7 @@ def main() -> int:
                      // args.requests]
                     for e in top
                 ],
+                "port_kernel_neighbours": neighbours(prof),
             }
             print(json.dumps(row), flush=True)
             del enc

@@ -11,8 +11,9 @@ a window of `--steps` steps without the profiler, then a profiled window of as m
 steps. Prints, per backbone, the wall time per step of both windows, the device time per
 step (the union of kernel intervals in the profiled window), the device's busy share of
 each window (that device time over the window's wall time), the device time per step of
-each kernel of the port, and the top device operations by self time, as device kernels
-and as the operators that launched them. Needs one CUDA card.
+each kernel of the port and the device kernels that ran just before and just after it (a
+layout copy beside K1 or K2 would show there), and the top device operations by self
+time, as device kernels and as the operators that launched them. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -30,14 +31,10 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 sys.path.insert(0, os.path.join(_ROOT, "scripts"))
 
-from torch_serving_profile import busy_ms  # noqa: E402
+from torch_serving_profile import PORT_KERNELS, busy_ms, neighbours  # noqa: E402
 
 CLIPS = 64  # the README's train command, as chip_smoke.py runs it
 SEED = 0
-# What the profiler's names of the port's hand kernels (csrc/*.cu) contain: K3 and K4 have
-# an f32 and a bf16 template each.
-PORT_KERNELS = {"K1": "maxpool3x3s2_kernel<", "K2": "maxpool3x3s2_bwd_kernel<",
-                "K3": "attention_fwd_", "K4": "attention_bwd_"}
 
 
 def top(events, steps: int, n: int = 12) -> list:
@@ -116,6 +113,7 @@ def main() -> int:
             "device_busy_share_unprofiled": busy / wall_unprofiled,
             "device_busy_share_profiled": busy / wall,
             "port_kernels_ms_per_step": kernels,
+            "port_kernel_neighbours": neighbours(prof),
             # Device kernels by name, and the operators that launched them (one
             # kernel's time shows in both lists).
             "top_kernels_ms_per_step": top(on_device, args.steps),

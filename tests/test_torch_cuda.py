@@ -33,6 +33,12 @@ from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
 pytestmark = pytest.mark.cuda
 
 POOL_SHAPES = [(2, 112, 112, 64), (3, 7, 9, 5), (1, 1, 1, 3)]
+# Where K1's strips of two outputs and K2's 2x2 owner blocks end: 40 stem images (more rows
+# of blocks than the card holds at once), 80,000 output rows (more than one launch's grid
+# takes, 65,535), odd and even H and W, and C on the 16-byte vector path (C * element size
+# a multiple of 16) and on the narrow path.
+POOL_EDGE_SHAPES = ([(40, 112, 112, 64), (40000, 3, 5, 8), (3, 9, 113, 64), (2, 18, 17, 8)]
+                    + [(2, 9, 11, c) for c in (1, 3, 5, 8, 12, 64, 72, 128)])
 ATTENTION_SHAPES = [(4, 50, 12, 64), (2, 10, 3, 8), (3, 7, 2, 16), (2, 120, 2, 64)]
 # K4 keeps two T x T tiles of a head on chip, so it takes shorter heads than K3.
 ATTENTION_BWD_SHAPES = [(4, 50, 12, 64), (2, 10, 3, 8), (3, 7, 2, 16), (2, 100, 2, 64)]
@@ -79,12 +85,16 @@ def _ties(gen, shape, dtype):
     return torch.randint(-2, 3, shape, generator=gen, device="cuda").clamp_min(0).to(dtype)
 
 
+def _pool_input(gen, shape, dtype, values):
+    return (torch.randn(shape, generator=gen, device="cuda").to(dtype) if values == "normal"
+            else _ties(gen, shape, dtype))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("values", ["normal", "ties"])
 @pytest.mark.parametrize("shape", POOL_SHAPES)
 def test_pool_kernel_and_its_argmax_are_exact(gen, dtype, values, shape):
-    x = (torch.randn(shape, generator=gen, device="cuda").to(dtype) if values == "normal"
-         else _ties(gen, shape, dtype))
+    x = _pool_input(gen, shape, dtype, values)
     before = maxpool_3x3s2_fwd.launches
     y, idx = maxpool_3x3s2_fwd(x, argmax=True)
     y_only, none = maxpool_3x3s2_fwd(x)
@@ -132,6 +142,70 @@ def test_pool_gradient_goes_through_both_kernels(gen, dtype):
     assert (maxpool_3x3s2_fwd.launches, maxpool_3x3s2_bwd.launches) == (fwd + 1, bwd + 1)
     _, idx = maxpool_3x3s2_reference(x.detach())
     assert torch.equal(x.grad, maxpool_3x3s2_bwd_reference(idx, dy, 15, 12))
+
+
+def _assert_pool_kernels_exact(gen, x, dy=None):
+    """K1 with and without its argmax, then K2 on that argmax (with `dy`, or a fresh
+    draw), against the plain versions; NaN where the plain version has NaN."""
+    y, idx = maxpool_3x3s2_fwd(x, argmax=True)
+    y_only, _ = maxpool_3x3s2_fwd(x)
+    want_y, want_idx = maxpool_3x3s2_reference(x)
+    if dy is None:
+        dy = torch.randn(y.shape, generator=gen, device="cuda").to(x.dtype)
+    dx = maxpool_3x3s2_bwd(idx, dy, *x.shape[1:3])
+    torch.cuda.synchronize()
+    for got in (y, y_only):
+        np.testing.assert_array_equal(got.float().cpu().numpy(), want_y.float().cpu().numpy())
+    assert torch.equal(idx, want_idx)
+    want_dx = maxpool_3x3s2_bwd_reference(idx, dy, *x.shape[1:3])
+    np.testing.assert_array_equal(dx.float().cpu().numpy(), want_dx.float().cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("values", ["normal", "ties"])
+@pytest.mark.parametrize("shape", POOL_EDGE_SHAPES)
+def test_pool_kernels_at_their_edges_are_exact(gen, dtype, values, shape):
+    _assert_pool_kernels_exact(gen, _pool_input(gen, shape, dtype, values))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [5, 64])
+def test_pool_kernels_on_views_with_a_storage_offset(gen, dtype, c):
+    """`x[1:]` is contiguous but starts 9*11*c elements in: 16-byte aligned at C=64 (the
+    vector path), not at C=5 (the narrow path)."""
+    x = _ties(gen, (3, 9, 11, c), dtype)[1:]
+    dy = torch.randn((3, 5, 6, c), generator=gen, device="cuda").to(dtype)[1:]
+    assert x.is_contiguous() and x.storage_offset() > 0 and dy.storage_offset() > 0
+    _assert_pool_kernels_exact(gen, x, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 18, 17, 8), (3, 9, 113, 64), (2, 9, 11, 5)])
+def test_pool_kernels_with_nan_in_first_last_and_shared_rows(gen, dtype, shape):
+    """NaN in input row 0, in the last row, and in odd rows (2oy+1, which two output rows'
+    windows share); in image 0, windows that hold only -inf, whose argmax is their first
+    offset inside the input (4, 3, 1 and 0 for outputs (0,0), (0,1), (1,0), (1,1))."""
+    x = _ties(gen, shape, dtype)
+    h, w = shape[1:3]
+    x[0, :4, :4] = float("-inf")
+    for r in (0, 1, 3, h // 2 | 1, h - 1):
+        x[:, r, (3 * r) % w, r % shape[3]] = float("nan")
+    _assert_pool_kernels_exact(gen, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4, 4, 8), (1, 5, 5, 8), (2, 9, 113, 64), (2, 6, 7, 5)])
+def test_pool_backward_kernel_with_every_offset_everywhere(gen, dtype, shape):
+    """K2 on an argmax drawn from 0..8 at random: every offset at every output, those that
+    point into the padding and those whose input lies in an owner block's absent +1
+    neighbour (last row and column at even H and W) included."""
+    oh, ow = (shape[1] - 1) // 2 + 1, (shape[2] - 1) // 2 + 1
+    idx = torch.randint(0, 9, (shape[0], oh, ow, shape[3]), generator=gen,
+                        device="cuda").to(torch.int8)
+    dy = torch.randn(idx.shape, generator=gen, device="cuda").to(dtype)
+    dx = maxpool_3x3s2_bwd(idx, dy, *shape[1:3])
+    torch.cuda.synchronize()
+    assert torch.equal(dx, maxpool_3x3s2_bwd_reference(idx, dy, *shape[1:3]))
 
 
 def test_pool_kernel_rejects_what_it_does_not_take(gen):

@@ -81,7 +81,11 @@ def test_pool_reference_propagates_nan_like_reduce_window(rng):
     assert np.isnan(got).sum() == 4
 
 
-POOL_SHAPES = [(2, 16, 12, 8), (2, 7, 9, 3), (1, 15, 15, 4), (2, 8, 5, 3), (1, 1, 1, 2)]
+# The last two put whole 16-byte channel vectors under the kernels (C = 8, 16) and leave a
+# remainder after K1's strips of two outputs and K2's 2x2 owner blocks (W = 14 pools to 7,
+# H = 13 and W = 11 are odd).
+POOL_SHAPES = [(2, 16, 12, 8), (2, 7, 9, 3), (1, 15, 15, 4), (2, 8, 5, 3), (1, 1, 1, 2),
+               (2, 10, 14, 8), (1, 13, 11, 16)]
 
 
 def _pool_input(rng, shape, values):
