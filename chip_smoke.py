@@ -15,16 +15,18 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    K1 (stem max-pool, with and without its int8 argmax, on an input full of ties) and K2
    (its backward) exact; K3 (fused attention) and K4 (its recompute-P backward) to a
    stated atol and to a relative L2 error that tells whether they round where their
-   plain versions do, K4 also against autograd of K3's plain forward; under grad a CUDA
-   call carries a grad_fn and its backward is the kernel; each row also gives the
-   kernel's time over the library call's (`library_ratio`), the bound over the kernel's
-   time (`bound_share`) and the bytes the function must move over the kernel's time
-   (`gbytes_per_s`);
+   plain versions do, K4 also against autograd of K3's plain forward, at ViT-B/32's
+   heads at 224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles), and
+   at T = 577 (768 px, correctness only); under grad a CUDA call carries a grad_fn and
+   its backward is the kernel; each row also gives the kernel's time over the library
+   call's (`library_ratio`), the bound over the kernel's time (`bound_share`) and the
+   bytes the function must move over the kernel's time (`gbytes_per_s`);
 4. ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
    reference ``model.pt``), parity and fast: a few requests of 256 frames at 224 px and
    one of 240x320 frames; shapes, finiteness, fast-vs-parity cosine, agreement with the
    CPU path on a small input, and K1's launches over the served requests;
-5. ViT-B/32 serving, the same, with K3's launches;
+5. ViT-B/32 serving, the same, with K3's launches; then ViT-B/32 at 384 px (T = 145),
+   one request of 64 frames;
 6. the ResNet-50 pretraining step, bf16, 64 clips of 5 frames at 224 px on the device,
    rctraj, language + TCN + L1/L2 losses, 3 negatives, Adam 1e-4, a frozen DistilBERT of
    base geometry: warm-up steps, then timed steps on one repeated batch, each drawing
@@ -32,12 +34,18 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    counts, K1 and K2 launch once a step, the BatchNorm statistics move, every trainable
    parameter has a finite, non-zero gradient; train frames/s and peak device memory.
    Then a few more steps with the crops and negatives held fixed: the loss falls;
-7. the ViT-B/32 pretraining step, the same, with 12 launches of K3 and of K4 a step;
-8. the ViT-B/32 pretraining step in f32 (TF32 off for matmuls and cuDNN), the same but
-   for 5 timed steps: the f32 K3 and K4 at full width, 12 launches of each a step;
-9. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card (TF32 off) and on
-   the CPU from the same state, batch, permutations and crops: loss and gradients agree;
-10. one JSON line with every kernel's numbers, then the result line.
+7. snapshot and resume: that state saved with ``save_train_snapshot`` and loaded into a
+   fresh state of another seed; the next step of both, crops and negatives fixed, gives
+   the same loss, through K1 and K2; save and load seconds, the snapshot's bytes;
+8. the ViT-B/32 pretraining step, the same as 6, with 12 launches of K3 and of K4 a step;
+   then at 384 px, 16 clips, 3 timed steps;
+9. the ViT-B/32 pretraining step in f32, the same but for 5 timed steps, with no TF32
+   flag set by this script (the step runs in true f32 itself): the f32 K3 and K4 at full
+   width, 12 launches of each a step; then that state saved and served through
+   ``load_r3m_from_snapshot`` in fast precision, against the live model in parity;
+10. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card and on the CPU from
+   the same state, batch, permutations and crops: loss and gradients agree;
+11. one JSON line with every kernel's numbers, then the result line.
 
 Each path's launch counts are set to 0 just before it runs and read just after; the
 kernel checks of phase 3 are not counted. Uses no JAX: the port is checked against its
@@ -46,8 +54,8 @@ own plain versions and its CPU path.
 
 from __future__ import annotations
 
-import contextlib
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -89,8 +97,17 @@ MAIN_ROW = "train_bf16"  # this slice's main path: the bf16 pretraining step
 # The kernels as their mangled names spell them: K1 and K2; K3 and K4's tensor-core
 # templates (bf16) and CUDA-core kernels (f32).
 POOL_KERNELS = ("maxpool3x3s2_kernel", "maxpool3x3s2_bwd_kernel")
-BF16_ATTENTION_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel")
-F32_ATTENTION_KERNELS = ("attention_fwd_f32_kernel", "attention_bwd_f32_kernel")
+BF16_ATTENTION_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel",
+                          "attention_fwd_bf16_tiled_kernel", "attention_bwd_dq_bf16_kernel",
+                          "attention_bwd_dkdv_bf16_kernel")
+F32_ATTENTION_KERNELS = ("attention_fwd_f32_kernel", "attention_bwd_f32_kernel",
+                         "attention_fwd_f32_tiled_kernel", "attention_bwd_dq_f32_kernel",
+                         "attention_bwd_dkdv_f32_kernel")
+# ViT-B/32 at 384 px: 12 x 12 patches and the class token, more than one block holds.
+T_384 = 145
+SERVE_384_BATCH = 64
+TRAIN_384_CLIPS = 16
+TIMED_STEPS_384 = 3
 
 
 def log(msg: str) -> None:
@@ -152,17 +169,6 @@ def spills(report: list) -> list:
     return [m.group(0) for line in report
             for m in re.finditer(r"(\d+) bytes (stack frame|spill stores|spill loads)", line)
             if int(m.group(1))]
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """f32 matmuls and convolutions in full f32, as the parity contract asks."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def check_pool(gen) -> tuple:
@@ -238,7 +244,10 @@ def check_pool(gen) -> tuple:
 
 
 def check_attention(gen) -> tuple:
-    """K3 at the serving and training shapes, K4 at the training shape."""
+    """K3 at the serving and training shapes, K4 at the training shapes, of ViT-B/32 at
+    224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles), timed; then both
+    at T = 577 (768 px), correctness only. The bound is the function's own work, not the
+    key-tiled kernels' extra passes."""
     from r3m_tpu_torch.ops.attention import (
         fused_attention,
         fused_attention_bwd,
@@ -247,9 +256,12 @@ def check_attention(gen) -> tuple:
         fused_attention_reference,
     )
 
-    t, h, d = 50, 12, 64  # ViT-B/32 at 224 px
+    h, d = 12, 64  # ViT-B/32
     k3, k4 = {}, {}
-    for phase, b in (("serve", SERVE_BATCH), ("train", TRAIN_BATCH)):
+    for phase, b, t in (("serve", SERVE_BATCH, 50), ("train", TRAIN_BATCH, 50),
+                        ("serve384", SERVE_384_BATCH, T_384),
+                        ("train384", TRAIN_384_CLIPS * FRAMES, T_384), ("check577", 2, 577)):
+        timed = phase != "check577"
         for dt in (torch.float32, torch.bfloat16):
             name = f"{phase}_{DT_NAMES[dt]}"
             q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device="cuda").to(dt)
@@ -268,14 +280,16 @@ def check_attention(gen) -> tuple:
             log(f"K3 {name}: max abs difference from SDPA (informative) "
                 f"{(o.float() - lib.float()).abs().max().item()}")
             flops = 2 * b * h * 2 * t * t * d
-            k3[name] = row(err, lambda: fused_attention_fwd(q, k, v, h),
-                           lambda: fused_attention_reference(q, k, v, h),
-                           nbytes(q, k, v, o), flops, dt,
-                           lambda: F.scaled_dot_product_attention(qh, kh, vh))
-            k3[name]["rel_l2_err"] = err_l2
-            log(f"K3 attention {name} {[b, t, h * d]} H={h}: atol {ATTENTION_ATOL[dt]}, "
-                f"relative L2 {ATTENTION_REL_L2[dt]}; {json.dumps(k3[name])}")
-            if phase != "train":
+            if timed:
+                k3[name] = row(err, lambda: fused_attention_fwd(q, k, v, h),
+                               lambda: fused_attention_reference(q, k, v, h),
+                               nbytes(q, k, v, o), flops, dt,
+                               lambda: F.scaled_dot_product_attention(qh, kh, vh))
+                k3[name]["rel_l2_err"] = err_l2
+            log(f"K3 attention {name} {[b, t, h * d]} H={h}: max abs error {err} (atol "
+                f"{ATTENTION_ATOL[dt]}), relative L2 {err_l2} ({ATTENTION_REL_L2[dt]}); "
+                f"{json.dumps(k3.get(name))}")
+            if phase.startswith("serve"):
                 continue
 
             grads = fused_attention_bwd(q, k, v, do, h)
@@ -302,6 +316,10 @@ def check_attention(gen) -> tuple:
             if fused_attention_bwd.launches != before + 1 or not all(
                     torch.equal(a, g) for a, g in zip(got, grads)):
                 raise AssertionError("K3 under grad: the backward did not go through K4")
+            if not timed:
+                log(f"K4 attention bwd {name} {[b, t, h * d]} H={h}: max abs error {err}, "
+                    f"relative L2 {err_l2}, against autograd {err_auto}")
+                continue
             lib_in = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
             lib_out = F.scaled_dot_product_attention(*lib_in)
             k4[name] = row(
@@ -350,16 +368,18 @@ def cosine_rows(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
 
 
 def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
-          min_cosine: float, tmp: str) -> dict:
-    """Serve requests through load_r3m_from_files; return the launches and frames/s.
-    `min_cosine` bounds fast against parity, row by row."""
+          min_cosine: float, tmp: str, batch: int = SERVE_BATCH,
+          requests: int = SERVE_REQUESTS, hw: int = 224) -> dict:
+    """Serve `requests` of `batch` frames of `hw` px (and one of 64 240x320 frames)
+    through load_r3m_from_files; return the launches and frames/s. `min_cosine` bounds
+    fast against parity, row by row."""
     import r3m_tpu_torch
 
     path = os.path.join(tmp, f"{name}.pt")
     write_model_pt(path, convnet)
     rng = np.random.default_rng(SEED)
-    frames = [rng.integers(0, 256, (SERVE_BATCH, 3, 224, 224), dtype=np.uint8)
-              for _ in range(SERVE_REQUESTS)]
+    frames = [rng.integers(0, 256, (batch, 3, hw, hw), dtype=np.uint8)
+              for _ in range(requests)]
     odd = rng.integers(0, 256, (64, 3, 240, 320), dtype=np.uint8)
 
     reset_counts()
@@ -372,9 +392,9 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
         for f in frames:
             e = enc(f)
         torch.cuda.synchronize()
-        fps[precision] = SERVE_BATCH * len(frames) / (time.perf_counter() - t0)
+        fps[precision] = batch * len(frames) / (time.perf_counter() - t0)
         e_odd = enc(odd)
-        for got, n in ((first, SERVE_BATCH), (e, SERVE_BATCH), (e_odd, len(odd))):
+        for got, n in ((first, batch), (e, batch), (e_odd, len(odd))):
             if got.shape != (n, out_dim) or got.dtype != torch.float32:
                 raise AssertionError(f"{name} {precision}: output {got.shape} {got.dtype}")
             if not torch.isfinite(got).all():
@@ -447,20 +467,22 @@ def check_gradients(name: str, model: torch.nn.Module) -> int:
 
 
 def train(name: str, size: int, bert, gen, dtype: str = "bfloat16",
-          timed_steps: int = TIMED_STEPS) -> dict:
+          timed_steps: int = TIMED_STEPS, clips: int = TRAIN_CLIPS, image_size: int = 224,
+          keep: bool = False):
     """The pretraining step at full width in `dtype`: warm-up steps, then timed steps on
-    one repeated batch (fresh crops and negatives each step, from the state's
-    generator)."""
+    one repeated batch of `clips` clips at `image_size` px (fresh crops and negatives each
+    step, from the state's generator). Returns the result, and with `keep` also
+    ``(cfg, state, step, batch)``."""
     from r3m_tpu_torch.data.augment import sample_crop_params
     from r3m_tpu_torch.losses import draw_permutations
     from r3m_tpu_torch.models.r3m import R3MConfig
     from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
 
     cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
-                    num_negatives=3, lr=1e-4, compute_dtype=dtype)
+                    num_negatives=3, lr=1e-4, compute_dtype=dtype, image_size=image_size)
     state = create_train_state(cfg, SEED)
     step = make_train_step(cfg, bert, doaug="rctraj")
-    batch = train_batch(gen, TRAIN_CLIPS, 224, bert.cfg.vocab_size, LANG_LEN)
+    batch = train_batch(gen, clips, image_size, bert.cfg.vocab_size, LANG_LEN)
     stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -491,36 +513,111 @@ def train(name: str, size: int, bert, gen, dtype: str = "bfloat16",
 
     # Fresh crops and negatives each step make the loss of a random-init model wander;
     # with them held fixed the same batch is the same objective, and it must fall.
-    perms = draw_permutations(gen, TRAIN_CLIPS, cfg.num_negatives)
-    crops = sample_crop_params(gen, TRAIN_CLIPS, 224, 224)
+    perms = draw_permutations(gen, clips, cfg.num_negatives)
+    crops = sample_crop_params(gen, clips, image_size, image_size)
     fixed = [float(step(state, batch, perms=perms, crops=crops)[1]["full_loss"])
              for _ in range(LEARN_STEPS)]
     if not (all(np.isfinite(fixed)) and fixed[-1] < fixed[0]):
         raise AssertionError(f"{name} train: with fixed draws the loss did not fall: {fixed}")
     result = {
         "dtype": dtype,
+        "image_size": image_size,
         "launches": launches,
         "steps": steps,
-        "clips": TRAIN_CLIPS,
-        "frames_per_step": TRAIN_BATCH,
+        "clips": clips,
+        "frames_per_step": clips * FRAMES,
         "losses": losses,
         "losses_fixed_draws": fixed,
         "metrics": {k: float(v) for k, v in metrics.items()},
-        "train_frames_per_s": timed_steps * TRAIN_BATCH / elapsed,
+        "train_frames_per_s": timed_steps * clips * FRAMES / elapsed,
         "ms_per_step": elapsed / timed_steps * 1e3,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "params_with_gradient": n_params,
     }
     log(f"{name} train: {json.dumps(result)}")
+    if keep:
+        return result, (cfg, state, step, batch)
     del state, step, batch
     torch.cuda.empty_cache()
     return result
 
 
+def snapshot_resume(name: str, kept, gen) -> dict:
+    """Save a trained state with save_train_snapshot and load it into a fresh state of
+    another seed; the next step of both, with the crops and permutations held fixed, gives
+    the same loss (rtol 1e-3: cuDNN need not sum in one order), through K1 and K2."""
+    from r3m_tpu_torch.checkpoint import load_train_snapshot, save_train_snapshot
+    from r3m_tpu_torch.data.augment import sample_crop_params
+    from r3m_tpu_torch.losses import draw_permutations
+    from r3m_tpu_torch.training.trainer import create_train_state
+
+    cfg, state, step, batch = kept
+    clips, hw = batch["images"].shape[0], batch["images"].shape[2]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_train_snapshot(tmp, state, cfg)
+        save_s = time.perf_counter() - t0
+        snapshot_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        fresh = load_train_snapshot(path, create_train_state(cfg, seed=1))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    perms = draw_permutations(gen, clips, cfg.num_negatives)
+    crops = sample_crop_params(gen, clips, hw, hw)
+    reset_counts()
+    losses = [float(step(s, batch, perms=perms, crops=crops)[1]["full_loss"])
+              for s in (state, fresh)]
+    launches = read_counts()
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    result = {"launches": launches, "global_step": fresh.step, "loss_saved_state": losses[0],
+              "loss_resumed_state": losses[1], "loss_rel_err": rel,
+              "save_s": save_s, "load_s": load_s, "snapshot_bytes": snapshot_bytes}
+    log(f"{name} snapshot resume: {json.dumps(result)}")
+    if not (rel <= 1e-3 and fresh.step == state.step):
+        raise AssertionError(f"{name}: the resumed state does not continue the saved one")
+    if launches["K1"] != 2 or launches["K2"] != 2:
+        raise AssertionError(f"{name} resume: launches {launches}, expected K1 = K2 = 2")
+    return result
+
+
+def snapshot_serve(name: str, kept) -> dict:
+    """Save a trained ViT state and serve it through load_r3m_from_snapshot in fast
+    precision: cosine against the live model's parity embeddings, K3 counted."""
+    import r3m_tpu_torch
+    from r3m_tpu_torch.checkpoint import save_train_snapshot
+    from r3m_tpu_torch.models.r3m import R3MEncoder
+
+    cfg, state, _, _ = kept
+    frames = np.random.default_rng(SEED).integers(0, 256, (64, 3, 224, 224), dtype=np.uint8)
+    want = R3MEncoder(cfg, state.model.convnet.state_dict())(frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_train_snapshot(tmp, state, cfg)
+        save_s = time.perf_counter() - t0
+        snapshot_bytes = os.path.getsize(path)
+        reset_counts()
+        t0 = time.perf_counter()
+        enc = r3m_tpu_torch.load_r3m_from_snapshot(path, "fast")
+        load_s = time.perf_counter() - t0
+        got = enc(frames)
+        launches = read_counts()
+    cos = float(cosine_rows(got, want).min())
+    result = {"launches": launches, "fast_vs_live_parity_cosine_min": cos,
+              "save_s": save_s, "load_s": load_s, "snapshot_bytes": snapshot_bytes}
+    log(f"{name} snapshot serve: {json.dumps(result)}")
+    if not (got.shape == want.shape and torch.isfinite(got).all() and cos >= 0.9995):
+        raise AssertionError(f"{name}: served snapshot cosine {cos} < 0.9995")
+    if launches["K3"] != 12:
+        raise AssertionError(f"{name} snapshot serve: launches {launches}, expected K3 = 12")
+    return result
+
+
 def cuda_against_cpu(size: int, image_size: int) -> dict:
-    """One f32 step on the card (TF32 off) and on the CPU from the same state, batch,
-    permutations and crops. The loss agrees to rtol 1e-4 and each gradient leaf to
-    relative L2 error 1e-3: what is left is the order of f32 sums."""
+    """One f32 step on the card and on the CPU from the same state, batch, permutations and
+    crops; the step sets its own precision (true f32). The loss agrees to rtol 1e-4 and
+    each gradient leaf to relative L2 error 1e-3: what is left is the order of f32 sums."""
     from r3m_tpu_torch.models.distilbert import DistilBert, DistilBertConfig
     from r3m_tpu_torch.models.r3m import R3MConfig, r3m_init
     from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
@@ -544,14 +641,12 @@ def cuda_against_cpu(size: int, image_size: int) -> dict:
     crops = torch.tensor([[0, 0, hw, hw], [3, 5, hw - 6, hw - 9], [2, 2, hw // 2, hw // 2],
                           [1, 4, hw - 2, hw - 5]], dtype=torch.float32)
     out = {}
-    with no_tf32():
-        for device in ("cpu", "cuda"):
-            state = create_train_state(cfg, SEED, model=copy.deepcopy(model), device=device)
-            step = make_train_step(cfg, copy.deepcopy(bert), doaug="rctraj", device=device)
-            state, metrics = step(state, batch, perms=perms, crops=crops)
-            out[device] = (float(metrics["full_loss"]),
-                           {n: p.grad.cpu().double() for n, p in
-                            state.model.named_parameters()})
+    for device in ("cpu", "cuda"):
+        state = create_train_state(cfg, SEED, model=copy.deepcopy(model), device=device)
+        step = make_train_step(cfg, copy.deepcopy(bert), doaug="rctraj", device=device)
+        state, metrics = step(state, batch, perms=perms, crops=crops)
+        out[device] = (float(metrics["full_loss"]),
+                       {n: p.grad.cpu().double() for n, p in state.model.named_parameters()})
     (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out["cpu"], out["cuda"]
     floor = 1e-4 * max(g.norm().item() for g in g_cpu.values())
     errs = {n: (g_gpu[n] - w).norm().item() / max(w.norm().item(), floor)
@@ -580,7 +675,7 @@ def main() -> int:
 
     from r3m_tpu_torch.models.distilbert import DistilBert
     from r3m_tpu_torch.models.resnet import ResNet
-    from r3m_tpu_torch.models.vit import ViT
+    from r3m_tpu_torch.models.vit import B32, ViT
     from r3m_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
@@ -619,15 +714,24 @@ def main() -> int:
         # fast paths land at cosine ~0.9999 against parity on the CPU, so the bound is
         # looser than the ResNet's.
         paths["serve_vit_b32"] = serve("vit_b32", ViT(), 768, "K3", 0.9995, tmp)
+        # ViT-B/32 at 384 px: T = 145, K3 in key tiles
+        paths["serve_vit_b32_384"] = serve(
+            "vit_b32_384", ViT(dataclasses.replace(B32, image_size=384)), 768, "K3", 0.9995,
+            tmp, batch=SERVE_384_BATCH, requests=1, hw=384)
 
     torch.manual_seed(SEED)
     bert = DistilBert().to("cuda")  # distilbert-base geometry, seeded random weights
-    paths["train_resnet50"] = train("resnet50", 50, bert, gen)
+    paths["train_resnet50"], kept = train("resnet50", 50, bert, gen, keep=True)
+    paths["snapshot_resume_resnet50"] = snapshot_resume("resnet50", kept, gen)
+    del kept
     paths["train_vit_b32"] = train("vit_b32", 0, bert, gen)
-    with no_tf32():
-        paths["train_vit_b32_f32"] = train("vit_b32_f32", 0, bert, gen, "float32",
-                                           TIMED_STEPS_F32)
-    del bert
+    paths["train_vit_b32_384"] = train("vit_b32_384", 0, bert, gen, timed_steps=TIMED_STEPS_384,
+                                       clips=TRAIN_384_CLIPS, image_size=384)
+    # The f32 step sets its own precision (true f32), whatever torch's TF32 flags say.
+    paths["train_vit_b32_f32"], kept = train("vit_b32_f32", 0, bert, gen, "float32",
+                                             TIMED_STEPS_F32, keep=True)
+    paths["snapshot_serve_vit_b32"] = snapshot_serve("vit_b32_f32", kept)
+    del bert, kept
     torch.cuda.empty_cache()
     for size, image_size in ((18, 32), (0, 64)):
         cuda_against_cpu(size, image_size)

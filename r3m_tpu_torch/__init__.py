@@ -3,8 +3,10 @@
 The PyTorch port of `r3m_tpu`, for an NVIDIA H100 (sm_90a). It serves: the reference's
 public API, `load_r3m(modelid)` / `load_r3m_reproduce(modelid)` /
 `load_r3m_from_files(path)`, returns an `R3MEncoder` (alias `R3M`) that maps NCHW images
-in [0, 255] to embeddings. Reference ``model.pt`` files load natively. And it pretrains:
-`r3m_tpu_torch.training.trainer.make_train_step` is the R3M pretraining step. The ResNet
+in [0, 255] to embeddings. Reference ``model.pt`` files load natively, and so do native
+``.npz`` snapshots of either package (`load_r3m_from_snapshot`). And it pretrains:
+`r3m_tpu_torch.training.trainer.make_train_step` is the R3M pretraining step, whose state
+`r3m_tpu_torch.checkpoint` saves and resumes in the JAX package's format. The ResNet
 stem pool and the ViT attention, forward and backward, run hand-written CUDA kernels
 (``r3m_tpu_torch/csrc``), built at first use.
 
@@ -30,6 +32,7 @@ __all__ = [
     "cleanup_config",
     "load_r3m",
     "load_r3m_from_files",
+    "load_r3m_from_snapshot",
     "load_r3m_reproduce",
     "r3m_embed",
 ]
@@ -97,18 +100,16 @@ def load_r3m_from_files(
 ) -> R3MEncoder:
     """Load from explicit artifact paths (offline hosts, local copies).
 
-    `modelpath` is a reference ``model.pt``/``snapshot.pt``; `configpath`, if given, its
-    ``config.yaml`` (which needs pyyaml). The weights decide the backbone and, for a ViT,
-    the crop size, whatever the config says.
+    `modelpath` is a reference ``model.pt``/``snapshot.pt``, or a native ``.npz``
+    snapshot (`load_r3m_from_snapshot`, which takes the architecture from the snapshot);
+    `configpath`, if given, its ``config.yaml`` (which needs pyyaml). The weights decide
+    the backbone and, for a ViT, the crop size, whatever the config says.
     """
     from r3m_tpu_torch.checkpoint import load_convnet
     from r3m_tpu_torch.models.r3m import resolve_device
 
     if modelpath.endswith(".npz"):
-        raise NotImplementedError(
-            "native .npz snapshots (load_r3m_from_snapshot) are not ported yet; "
-            "load a reference-format model.pt"
-        )
+        return load_r3m_from_snapshot(modelpath, precision=precision, device=device)
     device = resolve_device(device)  # fail before reading hundreds of MB
     cfg = _config_from_yaml(configpath) if configpath is not None else R3MConfig()
     sd, size, image_size = load_convnet(modelpath)
@@ -119,6 +120,31 @@ def load_r3m_from_files(
         image_size=image_size if image_size is not None else cfg.image_size,
     )
     return R3MEncoder(cfg, sd, precision=precision, device=device)
+
+
+def load_r3m_from_snapshot(path: str, precision: str = "parity", device=None) -> R3MEncoder:
+    """An encoder from a native training snapshot (``.npz``, written by either package).
+
+    The architecture comes from the snapshot's ``config`` metadata; the encoder serves in
+    `precision` whatever dtype the run trained in, and the language head is dropped, as
+    `load_r3m` drops it.
+    """
+    from r3m_tpu_torch.checkpoint import load_snapshot, r3m_config_from_meta
+    from r3m_tpu_torch.convert import state_dict_from_jax, strip_prefix
+    from r3m_tpu_torch.models.r3m import resolve_device
+
+    device = resolve_device(device)
+    tree, meta = load_snapshot(path)
+    if not meta.get("config"):
+        raise ValueError(
+            f"snapshot {path!r} carries no 'config' metadata, so its architecture cannot be "
+            "rebuilt; write it with save_train_snapshot(..., cfg) or "
+            "save_snapshot(..., meta={'config': dataclasses.asdict(cfg), ...})"
+        )
+    cfg = r3m_config_from_meta(meta, langweight=0, compute_dtype="float32")
+    sd = state_dict_from_jax({"convnet": tree["params"]["convnet"]},
+                             tree.get("batch_stats", {}), cfg.size, data_parallel=False)
+    return R3MEncoder(cfg, strip_prefix(sd, "convnet."), precision=precision, device=device)
 
 
 def load_r3m(modelid: str, precision: str = "parity", device=None) -> R3MEncoder:

@@ -7,13 +7,17 @@ weight/bias/running_mean/running_var, dense ``[in, out]`` -> Linear ``[out, in]`
 HF ``ViTModel`` names for size 0. `model_from_jax` carries a JAX train state's params and
 batch stats into an `R3MModel`, and `distilbert_state_from_jax` the frozen DistilBERT
 pytree into HF ``DistilBertModel`` names (the inverse of the JAX ``convert_distilbert``).
+The other way, `canonical_path` names where each `R3MModel` tensor lives in the JAX
+package's canonical tree (unpacked BatchNorm, as its snapshots hold it) and how its layout
+changes, and `canonical_tree` builds that tree from named tensors: the port's copy of the
+JAX ``convert_resnet`` / ``convert_linear`` / ``convert_language_reward`` and ``convert_vit``.
 The numpy input is all it reads: it imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -162,6 +166,118 @@ def model_from_jax(cfg: R3MConfig, params: Mapping, batch_stats: Mapping) -> R3M
     sd = state_dict_from_jax(params, batch_stats, cfg.size, data_parallel=False)
     model.load_state_dict(sd)
     return model
+
+
+# HF ViTModel module names under ``encoder.layer.{i}.`` -> the JAX layer's keys.
+_VIT_LAYER = {
+    "layernorm_before": "ln1", "attention.attention.query": "q",
+    "attention.attention.key": "k", "attention.attention.value": "v",
+    "attention.output.dense": "o", "layernorm_after": "ln2",
+    "intermediate.dense": "lin1", "output.dense": "lin2",
+}
+_VIT_TOP = {"embeddings.patch_embeddings.projection": ("patch",), "layernorm": ("final_ln",),
+            "pooler.dense": ("pooler",)}
+_BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def _resnet_module(parts) -> Tuple:
+    """``["layer2", "0", "downsample", "1"]`` -> ``("layer2", 0, "downsample", "bn")``."""
+    if len(parts) == 1:
+        return (parts[0],)
+    path = (parts[0], int(parts[1]))
+    if parts[2] == "downsample":
+        return path + ("downsample", "conv" if parts[3] == "0" else "bn")
+    return path + (parts[2],)
+
+
+def canonical_path(name: str) -> Optional[Tuple[str, Tuple, str]]:
+    """Where the `R3MModel` tensor `name` (``convnet.*``, ``lang_rew.*``) lives in the JAX
+    package's canonical tree: ``(group, path, layout)``, group ``"params"`` or
+    ``"batch_stats"``, path the keys and list indices under it, layout ``"conv"`` (OIHW ->
+    HWIO), ``"linear"`` ([out, in] -> [in, out]) or ``"same"``. None for what the tree does
+    not hold (BatchNorm's ``num_batches_tracked``)."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    if parts[0] == "lang_rew":  # lang_rew.pred.{0,2,4,6,8}.weight|bias
+        layer = ("lang_rew", "layers", int(parts[2]) // 2)
+        return ("params", layer + ("w",), "linear") if leaf == "weight" else (
+            "params", layer + ("b",), "same")
+    module = ".".join(parts[1:-1])
+    if parts[1] in ("embeddings", "encoder", "layernorm", "pooler"):  # HF ViTModel
+        if module == "embeddings":
+            return "params", ("convnet", {"cls_token": "cls"}.get(leaf, "pos")), "same"
+        if parts[1] == "encoder":  # encoder.layer.{i}.<module>.weight|bias
+            path = ("convnet", "layers", int(parts[3]), _VIT_LAYER[".".join(parts[4:-1])])
+        else:
+            path = ("convnet",) + _VIT_TOP[module]
+        if path[-1] in ("ln1", "ln2", "final_ln"):
+            return "params", path + ({"weight": "scale"}.get(leaf, "bias"),), "same"
+        if leaf == "bias":
+            return "params", path + ("b",), "same"
+        return "params", path + ("w",), "conv" if path[-1] == "patch" else "linear"
+    path = ("convnet",) + _resnet_module(parts[1:-1])
+    if path[-1].startswith("conv"):
+        return "params", path + ("w",), "conv"
+    if leaf not in _BN_LEAF:
+        return None
+    group, key = _BN_LEAF[leaf]
+    return group, (path if group == "params" else path[1:]) + (key,), "same"
+
+
+def to_canonical(x: torch.Tensor, layout: str) -> np.ndarray:
+    """A port tensor as the JAX package holds it (f32 numpy)."""
+    a = x.detach().float().cpu().numpy()
+    if layout == "conv":
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    return np.ascontiguousarray(a.T) if layout == "linear" else a
+
+
+def from_canonical(a: np.ndarray, layout: str) -> torch.Tensor:
+    """The inverse of `to_canonical`."""
+    a = np.asarray(a, np.float32)
+    if layout == "conv":
+        a = a.transpose(3, 2, 0, 1)
+    elif layout == "linear":
+        a = a.T
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _set(tree: Dict, path: Tuple, value) -> None:
+    """Put `value` at `path` (keys and list indices) into nested dicts and lists."""
+    node = tree
+    for key, nxt in zip(path[:-1], path[1:]):
+        if isinstance(node, list):
+            while len(node) <= key:
+                node.append(None)
+        empty = [] if isinstance(nxt, int) else {}
+        if isinstance(node, list):
+            node[key] = empty if node[key] is None else node[key]
+        else:
+            node.setdefault(key, empty)
+        node = node[key]
+    if isinstance(node, list):
+        while len(node) <= path[-1]:
+            node.append(None)
+    node[path[-1]] = value
+
+
+def get_path(tree, path: Tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def canonical_tree(named: Iterable[Tuple[str, torch.Tensor]], group: str = "params") -> Dict:
+    """The JAX package's canonical tree of `group` from named `R3MModel` tensors: its
+    params (``{"convnet", "lang_rew"?}``) from parameters, or anything laid out as they are
+    (Adam's moments, LARS's trace); its batch stats from the BatchNorm buffers."""
+    tree: Dict = {}
+    for name, x in named:
+        where = canonical_path(name)
+        if where is not None and where[0] == group:
+            _set(tree, where[1], to_canonical(x, where[2]))
+    return tree
 
 
 def distilbert_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -213,8 +213,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 @contextlib.contextmanager
-def _full_f32():
-    """True f32 convolutions and products (no TF32) for the block, restored after."""
+def full_f32():
+    """True f32 convolutions and products (no TF32) for the block; the caller's settings
+    are restored after. Parity serving and the f32 train and eval steps run inside it."""
     saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -319,7 +320,7 @@ class R3MEncoder(nn.Module):
                 f"expected NCHW [B, 3, H, W] images, got {tuple(obs.shape)}{hint}"
             )
         fast = self.precision == "fast"
-        precision_scope = contextlib.nullcontext() if fast else _full_f32()
+        precision_scope = contextlib.nullcontext() if fast else full_f32()
         with torch.inference_mode(), precision_scope:
             obs = obs.to(self.device).permute(0, 2, 3, 1)  # NHWC view
             if self.cfg.size == 0:

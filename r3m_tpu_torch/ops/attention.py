@@ -4,13 +4,14 @@ and backward.
 Replaces the TPU kernel ``r3m_tpu/ops/attention.py`` (``_fwd_call`` and ``_bwd_call``
 with their ``_kernel`` / ``_kernel_batched`` bodies, behind the custom-VJP
 ``fused_attention``), which the JAX ViT-B/32 forward runs in every layer. The Hopper
-kernels are in ``r3m_tpu_torch/csrc/attention.cu``: one block per (batch, head) reads the
-head's slices straight out of the packed tensors and is bound by memory. bfloat16 runs on
-the tensor cores (``mma.sync``, T up to 128, D a multiple of 8 up to 128). float32 runs in
-true f32 (``fmaf``, no TF32) on the CUDA cores, with a whole head and its T x T tiles in
-shared memory and every product tiled in 4 x 4 register blocks read as float4, half a
-shared-memory float per FMA; any D, and T as far as shared memory goes (at D = 64, T up to
-156 forward and 124 backward). Both take 16-byte aligned tensors. The backward saves
+kernels are in ``r3m_tpu_torch/csrc/attention.cu``: they read each head's slices straight
+out of the packed tensors and are bound by memory. bfloat16 runs on the tensor cores
+(``mma.sync``, D a multiple of 8 up to 128). float32 runs in true f32 (``fmaf``, no TF32) on
+the CUDA cores, every product tiled in 4 x 4 register blocks read as float4; it takes any D
+whose tiles fit in shared memory. Both take any T: a head that fits in one block (T up to
+128 in bf16; in f32 as long as the backward's T x T tiles fit, T up to 124 at D = 64) is
+done by one block, a longer one in key tiles, with the softmax still exact (two passes
+over the keys: max and sum, then P). Both take 16-byte aligned tensors. The backward saves
 nothing but q, k and v and recomputes P. The source says more.
 
 Numerics, as in the TPU kernels: scores and softmax in f32, P cast to V's dtype before the
@@ -36,12 +37,6 @@ import torch
 from r3m_tpu_torch.ops._build import load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-# The bf16 kernels: a warp per 16 query rows, at most 8 warps; rows of 16-byte chunks.
-_BF16_MAX_T = 128
-_BF16_MAX_D = 128
-# The f32 kernels' longest head at D = 64, forward and backward, by their shared memory.
-_F32_MAX_T_AT_64 = {False: 156, True: 124}
 
 
 def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -104,14 +99,15 @@ def _lib():
     ]
     lib.r3m_attention_fwd.restype = ctypes.c_int
     lib.r3m_attention_bwd.argtypes = [
-        *([ctypes.c_void_p] * 7),
+        *([ctypes.c_void_p] * 8),
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.r3m_attention_bwd.restype = ctypes.c_int
-    for fn in (lib.r3m_attention_smem_bytes, lib.r3m_attention_bwd_smem_bytes):
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_size_t
+    lib.r3m_attention_takes.argtypes = [ctypes.c_int] * 3
+    lib.r3m_attention_takes.restype = ctypes.c_int
+    lib.r3m_attention_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.r3m_attention_bwd_workspace_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -141,25 +137,15 @@ def _check(name: str, n_heads: int, *xs: torch.Tensor) -> bool:
     return False
 
 
-def _check_kernel_shape(lib, xs, t: int, d: int, backward: bool) -> None:
+def _check_kernel_shape(lib, xs, t: int, d: int) -> None:
     """Raise for what the kernel of the operands' dtype does not take."""
     if any(x.data_ptr() % 16 for x in xs):
         raise ValueError("the attention kernels need 16-byte aligned tensors")
-    if xs[0].dtype == torch.bfloat16:
-        if t > _BF16_MAX_T or d % 8 or d > _BF16_MAX_D:
-            raise ValueError(
-                f"the bf16 kernel takes T up to {_BF16_MAX_T} and D a multiple of 8 up to "
-                f"{_BF16_MAX_D}, got T={t}, D={d}"
-            )
-        return
-    smem = (lib.r3m_attention_bwd_smem_bytes(t, d) if backward
-            else lib.r3m_attention_smem_bytes(t, d))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"T={t}, D={d} needs {smem} bytes of shared memory per block; the f32 kernels "
-            f"keep a whole head on chip and take at most {_SMEM_LIMIT} (at D=64: T up to "
-            f"{_F32_MAX_T_AT_64[backward]})"
-        )
+    dtype = xs[0].dtype
+    if not lib.r3m_attention_takes(t, d, _DTYPES[dtype]):
+        what = ("D a multiple of 8 up to 128" if dtype == torch.bfloat16
+                else "D whose key tiles fit in shared memory")
+        raise ValueError(f"the {dtype} attention kernels take {what}, got T={t}, D={d}")
 
 
 def fused_attention_fwd(
@@ -170,15 +156,15 @@ def fused_attention_fwd(
     Head ``h`` occupies columns ``[h*D, (h+1)*D)``; the context comes back in the same
     packed layout. CUDA tensors must be contiguous float32 or bfloat16 of one shape and
     dtype, 16-byte aligned; they go through the Hopper kernel, never through the plain
-    version. bfloat16 takes T up to 128 and D a multiple of 8 up to 128; float32 any D and
-    what fits in shared memory (at D = 64, T up to 156; 124 for the backward).
+    version. Any T; bfloat16 takes D a multiple of 8 up to 128, float32 any D whose tiles
+    fit in shared memory.
     """
     if _check("fused_attention", n_heads, q, k, v):
         return fused_attention_reference(q, k, v, n_heads)
     b, t, hd = q.shape
     d = hd // n_heads
     lib = _lib()
-    _check_kernel_shape(lib, (q, k, v), t, d, backward=False)
+    _check_kernel_shape(lib, (q, k, v), t, d)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
@@ -207,14 +193,18 @@ def fused_attention_bwd(
     b, t, hd = q.shape
     d = hd // n_heads
     lib = _lib()
-    _check_kernel_shape(lib, (q, k, v, do), t, d, backward=True)
+    _check_kernel_shape(lib, (q, k, v, do), t, d)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
+    # m, l and delta of every row, when the head is done in key tiles
+    work = lib.r3m_attention_bwd_workspace_bytes(b, t, n_heads, d, _DTYPES[q.dtype])
+    work = torch.empty(work // 4, dtype=torch.float32, device=q.device) if work else None
     with torch.cuda.device(q.device):
         err = lib.r3m_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if work is None else work.data_ptr(),
             b, t, n_heads, d, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )

@@ -15,6 +15,7 @@ the crops, then the permutations. Tests hand in the JAX package's crops and perm
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Mapping, Optional, Sequence, Union
 
@@ -24,7 +25,14 @@ import torch
 from r3m_tpu_torch.data.augment import random_resized_crop_clips
 from r3m_tpu_torch.losses import draw_permutations, r3m_loss
 from r3m_tpu_torch.models.distilbert import DistilBert, sentence_embedding
-from r3m_tpu_torch.models.r3m import R3MConfig, R3MModel, r3m_embed, r3m_init, resolve_device
+from r3m_tpu_torch.models.r3m import (
+    R3MConfig,
+    R3MModel,
+    full_f32,
+    r3m_embed,
+    r3m_init,
+    resolve_device,
+)
 from r3m_tpu_torch.utils.misc import schedule_fn
 
 Batch = Mapping[str, Union[torch.Tensor, np.ndarray]]
@@ -147,6 +155,13 @@ def _check_bert(cfg: R3MConfig, bert: Optional[DistilBert], device) -> Optional[
     return None if bert is None else bert.to(device).requires_grad_(False).eval()
 
 
+def _precision(cfg: R3MConfig):
+    """The step's precision scope: an f32 step runs in true f32 (TF32 off for cuDNN and
+    for matmuls, whatever the caller's flags, which are restored after), the arithmetic the
+    CPU comparison and `R3MEncoder`'s parity precision use; a bf16 step as it is."""
+    return full_f32() if cfg.compute_dtype == "float32" else contextlib.nullcontext()
+
+
 def make_train_step(
     cfg: R3MConfig,
     bert_params: Optional[DistilBert] = None,
@@ -172,6 +187,8 @@ def make_train_step(
     Metrics (0-d tensors on the device): ``l2loss l1loss l0loss``, ``rewloss rewacc1..3``
     with language, ``tcnloss aligned`` with TCN, ``full_loss`` and ``grad_norm`` (the
     global L2 norm of the gradients), averaged over microbatches.
+
+    With ``cfg.compute_dtype="float32"`` the step runs in true f32 (`_precision`).
     """
     if doaug not in ("none", "rc", "rctraj"):
         raise ValueError(
@@ -186,6 +203,10 @@ def make_train_step(
     def step(state: TrainState, batch: Batch,
              perms: Optional[Union[Perms, Sequence[Perms]]] = None,
              crops: Optional[torch.Tensor] = None):
+        with _precision(cfg):
+            return _step(state, batch, perms, crops)
+
+    def _step(state, batch, perms, crops):
         if state.device != device:
             raise ValueError(f"state lives on {state.device}, the step on {device}")
         batch = _to_device(batch, device)
@@ -239,7 +260,8 @@ def make_eval_step(cfg: R3MConfig, bert_params: Optional[DistilBert] = None, dev
     the same losses and metrics with BatchNorm in eval mode, no augmentation, no gradient,
     no update; the state is left as it was (the reference's ``update(eval=True)`` under
     no_grad, train_representation.py:114-117). The permutations come from `perms` or are
-    drawn from `generator`, the counterpart of the JAX step's key."""
+    drawn from `generator`, the counterpart of the JAX step's key. An f32 eval step runs
+    in true f32, as the train step does."""
     device = resolve_device(device)
     bert = _check_bert(cfg, bert_params, device)
 
@@ -247,6 +269,10 @@ def make_eval_step(cfg: R3MConfig, bert_params: Optional[DistilBert] = None, dev
     def eval_step(state: TrainState, batch: Batch,
                   generator: Optional[torch.Generator] = None,
                   perms: Optional[Perms] = None):
+        with _precision(cfg):
+            return _eval(state, batch, generator, perms)
+
+    def _eval(state, batch, generator, perms):
         batch = _to_device(batch, device)
         images = batch["images"]
         if perms is None:

@@ -6,7 +6,7 @@ breakdown.
 For the ResNet-50 and ViT-B/32 steps in chip_smoke.py's configuration (64 clips of 5
 random uint8 frames at 224 px on the device, rctraj, language + TCN + L1/L2 losses, Adam
 1e-4, a frozen DistilBERT of base geometry with seeded random weights), in bf16 or in f32
-with TF32 off for matmuls and cuDNN (the parity contract's f32): two warm-up steps,
+(the f32 step turns TF32 off for matmuls and cuDNN itself): two warm-up steps,
 a window of `--steps` steps without the profiler, then a profiled window of as many
 steps. Prints, per backbone, the wall time per step of both windows, the device time per
 step (the union of kernel intervals in the profiled window), the device's busy share of
@@ -72,8 +72,6 @@ def main() -> int:
         "lang_mask": torch.ones(CLIPS, device="cuda"),
     }
     frames = CLIPS * 5
-    if args.dtype == "float32":
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     for size, name in ((50, "resnet50"), (0, "vit_b32")):
         cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
                         compute_dtype=args.dtype)

@@ -50,19 +50,25 @@ ATTENTION_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # 5e-4. Without those roundings K4 would be ~3e-3 away.
 ATTENTION_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 # The bf16 kernels' tiles end at multiples of 16 rows and of 16 columns of D: T at D=64
-# and D at T=50 on either side of those edges, up to the limits T=128 and D=128. 16
-# frames, so that the relative L2 error counts many rounding steps and not a handful.
-EDGE_SHAPES = ([(16, t, 2, 64) for t in (1, 5, 15, 16, 17, 50, 64, 65, 127, 128)]
-               + [(16, 50, 2, d) for d in (8, 16, 32, 128)])
+# and D at T=50 on either side of those edges, past the one-block limit T=128 (key tiles
+# of 64 from there on, 128 where D > 64) and D up to 128. 16 frames, so that the relative
+# L2 error counts many rounding steps and not a handful.
+EDGE_SHAPES = ([(16, t, 2, 64) for t in (1, 5, 15, 16, 17, 50, 64, 65, 127, 128, 129, 255, 256)]
+               + [(16, 50, 2, d) for d in (8, 16, 32, 128)]
+               + [(16, 145, 2, d) for d in (8, 72, 128)])
 # The f32 kernels' micro-tiles end at multiples of 4 rows and of 4 columns of D: T at D=64
-# on either side of those edges and at the longest head each kernel takes (156 forward,
-# 124 backward), D at T=50 on either side of multiples of 4 and 8 (D % 4 != 0 takes the
-# 4-byte load path).
-F32_EDGE_T = (1, 3, 4, 5, 7, 8, 9, 50, 63, 64, 65, 100)
-F32_EDGE_D = [(16, 50, 2, d) for d in (4, 6, 12, 32, 128)]
-F32_EDGE_SHAPES = [(16, t, 2, 64) for t in (*F32_EDGE_T, 127, 128, 156)] + F32_EDGE_D
-F32_EDGE_BWD_SHAPES = [(16, t, 2, 64) for t in (*F32_EDGE_T, 124)] + F32_EDGE_D
-
+# on either side of those edges and of the longest head one block keeps (124: from 125 on,
+# forward and backward go in key tiles of 64), D at T=50 on either side of multiples of 4
+# and 8 (D % 4 != 0 takes the 4-byte load path), and D in key tiles (of up to 64 rows,
+# 32 at D=128, 16 at D=256).
+F32_EDGE_T = (1, 3, 4, 5, 7, 8, 9, 50, 63, 64, 65, 100, 124, 125)
+F32_EDGE_D = [(16, 50, 2, d) for d in (4, 6, 12, 32, 128)] + [
+    (8, 145, 2, d) for d in (6, 12, 128, 256)]
+F32_EDGE_SHAPES = [(16, t, 2, 64) for t in (*F32_EDGE_T, 127, 128, 156, 157)] + F32_EDGE_D
+F32_EDGE_BWD_SHAPES = [(16, t, 2, 64) for t in F32_EDGE_T] + F32_EDGE_D
+# Heads longer than one block holds, in key tiles: 384 px (T=145), 448 px (197), 512 px
+# (257) and 768 px (577) ViTs among them.
+LONG_SHAPES = [(8, t, 2, 64) for t in (129, 144, 145, 160, 170, 197, 257)] + [(2, 577, 2, 64)]
 
 @pytest.fixture
 def gen():
@@ -281,7 +287,31 @@ def test_f32_attention_backward_kernel_at_tile_edges(gen, b, t, h, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [17, 50, 64])
+@pytest.mark.parametrize("b,t,h,d", LONG_SHAPES)
+def test_attention_kernels_take_long_heads(gen, dtype, b, t, h, d):
+    """K3 and K4 in key tiles against their plain versions, K4 also against autograd of
+    K3's plain forward, and K4 the same from run to run (no atomics)."""
+    q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    fwd, bwd = fused_attention_fwd.launches, fused_attention_bwd.launches
+    o = fused_attention_fwd(q, k, v, h)
+    got = fused_attention_bwd(q, k, v, do, h)
+    again = fused_attention_bwd(q, k, v, do, h)
+    torch.cuda.synchronize()
+    assert (fused_attention_fwd.launches, fused_attention_bwd.launches) == (fwd + 1, bwd + 2)
+    _assert_close(o, fused_attention_reference(q, k, v, h), dtype)
+    for g, a, want in zip(got, again, fused_attention_bwd_reference(q, k, v, do, h)):
+        _assert_close(g, want, dtype)
+        assert torch.equal(g, a)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    auto = torch.autograd.grad(fused_attention_reference(*leaves, h), leaves, do)
+    atol = {torch.float32: 1e-5, torch.bfloat16: 6e-2}[dtype]
+    for g, a in zip(got, auto):
+        assert (g.float() - a.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [17, 50, 64, 145])
 def test_attention_kernels_stay_inside_their_frame(gen, dtype, t):
     """Odd frames hold +-100 in Q, K, V and dO, and packed row T of an even frame is row 0
     of the odd frame after it: a kernel that read or softmaxed past row T would get the
@@ -318,24 +348,25 @@ def test_attention_gradient_goes_through_both_kernels(gen):
 
 
 def test_attention_kernel_rejects_a_head_too_long_for_shared_memory(gen):
-    """f32 is bounded by shared memory, at D=64 to T up to 156 forward and 124 backward
-    (the edge tests run both limits); bf16 by its tiles: T up to 128, D a multiple of 8 up
-    to 128. Both need 16-byte aligned tensors."""
-    q = torch.randn((1, 157, 64), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_attention(q, q, q, 1)
-    q = q[:, :125].contiguous()  # K3 takes it; K4 does not
-    fused_attention_fwd(q, q, q, 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_attention_bwd(q, q, q, q, 1)
+    """No head is too long now: f32 past what one block's shared memory holds (T=157
+    forward, 125 backward at D=64) and bf16 past its one-block tiles (T=129) go in key
+    tiles. What the kernels still refuse: bf16 D not a multiple of 8 or above 128, f32 D
+    whose tiles do not fit, and tensors that are not 16-byte aligned."""
+    for t, dtype in ((157, torch.float32), (125, torch.float32), (129, torch.bfloat16)):
+        q = torch.randn((1, t, 64), generator=gen, device="cuda").to(dtype)
+        assert fused_attention(q, q, q, 1).shape == q.shape
+        assert all(g.shape == q.shape for g in fused_attention_bwd(q, q, q, q, 1))
     q = torch.randn(50 * 64 + 1, generator=gen, device="cuda")[1:].view(1, 50, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused_attention(q, q, q, 1)
-    for shape in ((1, 129, 64), (1, 50, 12)):
+    with pytest.raises(ValueError, match="tiles fit in shared memory"):
+        q = torch.randn((1, 50, 1024), generator=gen, device="cuda")
+        fused_attention(q, q, q, 1)
+    for shape in ((1, 129, 12), (1, 50, 12), (1, 50, 136)):
         q = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-        with pytest.raises(ValueError, match="T up to 128 and D a multiple of 8"):
+        with pytest.raises(ValueError, match="D a multiple of 8 up to 128"):
             fused_attention(q, q, q, 1)
-        with pytest.raises(ValueError, match="T up to 128 and D a multiple of 8"):
+        with pytest.raises(ValueError, match="D a multiple of 8 up to 128"):
             fused_attention_bwd(q, q, q, q, 1)
     q = torch.randn(50 * 64 + 1, generator=gen, device="cuda").bfloat16()[1:].view(1, 50, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -379,10 +410,9 @@ def test_every_parameter_gets_a_gradient_on_the_card(gen, size, image_size):
         assert torch.isfinite(p.grad).all() and (p.grad != 0).any(), name
 
 
-def test_train_step_on_the_card_matches_the_cpu(gen):
-    """The same f32 ResNet-18 step (TF32 off) from the same state, batch, permutations and
-    crops on the card and on the CPU: the loss to rtol 1e-4, each gradient leaf to
-    relative L2 error 1e-3 (what is left is the order of f32 sums)."""
+def _small_f32_step_inputs():
+    """A ResNet-18 at 32 px with a language head, a small frozen DistilBERT, a batch, its
+    permutations and crops, all from fixed seeds."""
     cfg = R3MConfig(size=18, hidden_dim=64, langweight=1.0, image_size=32)
     torch.manual_seed(0)
     bert = DistilBert(DistilBertConfig(vocab_size=100, n_layers=1, n_heads=4,
@@ -396,21 +426,54 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
              "tcn": torch.stack([torch.randperm(4) for _ in range(6)]).reshape(3, 2, 4)}
     crops = torch.tensor([[0, 0, 40, 48], [3, 5, 30, 33], [10, 2, 21, 25], [1, 9, 38, 39]],
                          dtype=torch.float32)
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        out = {}
-        for device in ("cpu", "cuda"):
-            state = create_train_state(cfg, 0, model=copy.deepcopy(model), device=device)
-            step = make_train_step(cfg, copy.deepcopy(bert), doaug="rctraj", device=device)
-            state, metrics = step(state, batch, perms=perms, crops=crops)
-            out[device] = (float(metrics["full_loss"]),
-                           {n: p.grad.cpu() for n, p in state.model.named_parameters()})
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return cfg, bert, model, batch, perms, crops
+
+
+def _one_step(device, cfg, bert, model, batch, perms, crops):
+    state = create_train_state(cfg, 0, model=copy.deepcopy(model), device=device)
+    step = make_train_step(cfg, copy.deepcopy(bert), doaug="rctraj", device=device)
+    state, metrics = step(state, batch, perms=perms, crops=crops)
+    return (float(metrics["full_loss"]),
+            {n: p.grad.cpu() for n, p in state.model.named_parameters()})
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """The same f32 ResNet-18 step from the same state, batch, permutations and crops on
+    the card and on the CPU: the loss to rtol 1e-4, each gradient leaf to relative L2 error
+    1e-3 (what is left is the order of f32 sums). The step sets its own precision (true
+    f32), so the caller sets no flag."""
+    inputs = _small_f32_step_inputs()
+    out = {device: _one_step(device, *inputs) for device in ("cpu", "cuda")}
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     for name, want in out["cpu"][1].items():
         got = out["cuda"][1][name]
         floor = 1e-4 * max(g.norm().item() for g in out["cpu"][1].values())
         err = (got - want).norm().item() / max(want.norm().item(), floor)
         assert err <= 1e-3, f"{name}: relative L2 error {err}"
+
+
+def test_f32_step_is_true_f32_whatever_the_callers_tf32_flags(gen):
+    """With TF32 allowed for cuDNN and for matmuls, the f32 step gives the loss and
+    gradients it gives with both off (to 1e-6 relative), and leaves the caller's flags as
+    it found them. cuDNN runs deterministic algorithms here: its default weight-gradient
+    algorithms sum in an order that changes from run to run (5.7e-5 relative apart on the
+    H100), which would hide what TF32 does (~1e-3)."""
+    inputs = _small_f32_step_inputs()
+    backends = torch.backends
+    saved = (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+             backends.cudnn.deterministic)
+    out = {}
+    try:
+        backends.cudnn.deterministic = True
+        for allow in (False, True):
+            backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = allow
+            out[allow] = _one_step("cuda", *inputs)
+            assert (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32) == (allow, allow)
+    finally:
+        (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+         backends.cudnn.deterministic) = saved
+    (loss_off, g_off), (loss_on, g_on) = out[False], out[True]
+    assert abs(loss_on - loss_off) <= 1e-6 * abs(loss_off)
+    for name, want in g_off.items():
+        err = (g_on[name] - want).norm().item()
+        assert err <= 1e-6 * want.norm().item(), f"{name}: relative L2 error {err}"

@@ -182,6 +182,27 @@ def test_vit_forward_matches_jax(rng, jax_attention):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
+def test_vit_forward_of_a_long_head_matches_jax(rng):
+    """T = 145 tokens (12 x 12 patches and the class token, as ViT-B/32 at 384 px has),
+    more than one block of the card's attention kernels holds: the port's forward against
+    the JAX forward through its Pallas kernel (interpret mode)."""
+    geometry = dict(SMALL_VIT, image_size=96, patch_size=8)
+    jcfg = jvit.ViTConfig(**geometry)
+    params = _np_tree(jvit.vit_b32_init(jax.random.PRNGKey(1), jcfg))
+    x = rng.normal(size=(2, 96, 96, 3)).astype(np.float32)
+    want = np.asarray(jvit.vit_b32_apply(
+        params, jnp.asarray(x), jcfg, precision=HIGHEST,
+        fused_attn="batched", fused_attn_interpret=True,
+    ))
+    net = ViT(ViTConfig(**geometry))
+    assert net.embeddings.position_embeddings.shape[1] == 145
+    sd = state_dict_from_jax({"convnet": params}, {}, 0, data_parallel=False)
+    net.load_state_dict(strip_prefix(sd, "convnet."))
+    with torch.inference_mode():
+        got = net(_nchw(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
 def test_vit_keys_and_config_inference_match_jax():
     """The port's ViT state dict is what the JAX exporter writes, and both packages
     read the same config back from it."""

@@ -167,8 +167,11 @@ def test_entry_points_raise_without_a_card(resnet18_pt, monkeypatch):
         r3m_tpu_torch.load_r3m_from_files(resnet18_pt)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         R3MEncoder(R3MConfig(size=18))
-    with pytest.raises(NotImplementedError, match="npz"):
-        r3m_tpu_torch.load_r3m_from_files("snapshot.npz", device="cpu")
+    # native snapshots: the device is resolved before the file is read
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        r3m_tpu_torch.load_r3m_from_files("snapshot.npz")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        r3m_tpu_torch.load_r3m_from_snapshot("snapshot.npz")
 
 
 def test_encoder_input_checks(rng):
