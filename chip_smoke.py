@@ -24,7 +24,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
 4. ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
    reference ``model.pt``), parity and fast: a few requests of 256 frames at 224 px and
    one of 240x320 frames; shapes, finiteness, fast-vs-parity cosine, agreement with the
-   CPU path on a small input, and K1's launches over the served requests;
+   CPU path on a small input, and K1's launches over the served requests. Then that
+   ``model.pt`` through the embed CLI over 130 PNG files of 240x320 (batches of 64 and a
+   tail of 2), parity and fast: frames/s of the whole CLI, the paths in order, K1 once a
+   batch, parity against `R3MEncoder` on the same decoded arrays (cosine > 0.9999);
 5. ViT-B/32 serving, the same, with K3's launches; then ViT-B/32 at 384 px (T = 145),
    one request of 64 frames;
 6. the ResNet-50 pretraining step, bf16, 64 clips of 5 frames at 224 px on the device,
@@ -43,9 +46,21 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    flag set by this script (the step runs in true f32 itself): the f32 K3 and K4 at full
    width, 12 launches of each a step; then that state saved and served through
    ``load_r3m_from_snapshot`` in fast precision, against the live model in parity;
-10. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card and on the CPU from
+10. reward scoring (`R3MRewardModel`): the ResNet-50 state of 6 saved as an ``.npz`` with a
+   base-geometry DistilBERT (``distilbert.npz`` with ``bert_config`` metadata, the training
+   phases' frozen encoder) and a vocab, scored in parity and fast precision: 32 (start,
+   current) pairs of 224 px frames from host memory against 32 sentences padded to 32
+   tokens, 2 warm-up and 10 timed queries (queries/s, pairs/s, ms a query), then a reward
+   curve over 50 frames (ms); K1 once a query; parity within a stated share of the
+   rewards' spread of the same snapshot scored on the CPU, fast within a stated atol of
+   parity.
+   Then the f32 ViT-B/32 state of 9 as a reference ``snapshot.pt`` with the DistilBERT
+   embedded (``module.lang_enc.model.*``), scored through ``from_torch_snapshot`` the same
+   way in parity, K3 12 times a query, against the CPU; and that ``snapshot.pt`` through
+   the convert CLI, ``to-native`` then ``to-torch``: every tensor comes back exactly;
+11. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card and on the CPU from
    the same state, batch, permutations and crops: loss and gradients agree;
-11. one JSON line with every kernel's numbers, then the result line.
+12. one JSON line with every kernel's numbers, then the result line.
 
 Each path's launch counts are set to 0 just before it runs and read just after; the
 kernel checks of phase 3 are not counted. Uses no JAX: the port is checked against its
@@ -108,10 +123,35 @@ T_384 = 145
 SERVE_384_BATCH = 64
 TRAIN_384_CLIPS = 16
 TIMED_STEPS_384 = 3
+# Reward queries: 32 (start, current) pairs of 224 px frames against 32 sentences padded to
+# 32 tokens; a reward curve over a 50-frame trajectory; the embed CLI over 130 images.
+REWARD_PAIRS = 32
+REWARD_WARMUP = 2
+REWARD_QUERIES = 10
+CURVE_FRAMES = 50
+EMBED_IMAGES = 130
+EMBED_BATCH = 64
+# Parity rewards on the card against the same model on the CPU, as a share of the CPU
+# rewards' spread (max - min over the 32 pairs): they differ only in the order of f32 sums
+# in the image encode. Fast against parity (the bf16 image encode), the bound the JAX
+# package's own fast-reward test holds (tests/test_reward_model.py).
+REWARD_CPU_SHARE = 1e-2
+REWARD_FAST_ATOL = 5e-2
+VERBS = ("pick up", "open", "close", "put down", "wipe", "turn", "lift", "pour water into")
+OBJECTS = ("the cup", "the drawer", "the door", "a bowl on the table", "the counter with a cloth",
+           "the knob slowly")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -662,15 +702,239 @@ def cuda_against_cpu(size: int, image_size: int) -> dict:
     return result
 
 
+def sentences() -> list:
+    """32 instructions of 3 to 8 words."""
+    return [f"{VERBS[i % len(VERBS)]} {OBJECTS[(i * 5) % len(OBJECTS)]}"
+            for i in range(REWARD_PAIRS)]
+
+
+def write_language(tmp: str, bert) -> tuple:
+    """The frozen DistilBERT as a JAX-format ``distilbert.npz`` with ``bert_config``
+    metadata, and a ``vocab.txt`` of the special tokens and the sentences' words."""
+    from r3m_tpu_torch.checkpoint import save_snapshot
+    from r3m_tpu_torch.convert import distilbert_tree
+
+    bert_path = os.path.join(tmp, "distilbert.npz")
+    save_snapshot(bert_path, distilbert_tree(bert.state_dict()),
+                  {"bert_config": dataclasses.asdict(bert.cfg)})
+    words = sorted({w for s in sentences() for w in s.split()})
+    vocab_path = os.path.join(tmp, "vocab.txt")
+    with open(vocab_path, "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", *words]) + "\n")
+    return bert_path, vocab_path
+
+
+def reward_frames() -> tuple:
+    """Start and current frames of the pairs and a trajectory, uint8 in host memory."""
+    rng = np.random.default_rng(SEED)
+    pairs = [rng.integers(0, 256, (REWARD_PAIRS, 3, 224, 224), dtype=np.uint8)
+             for _ in range(2)]
+    return pairs, rng.integers(0, 256, (CURVE_FRAMES, 3, 224, 224), dtype=np.uint8)
+
+
+def score(name: str, rm, kernel: str, per_query: int) -> tuple:
+    """Warm-up and timed reward queries, a warm-up and a timed reward curve, then one
+    stacked encode and one `get_reward` timed apart; every result is read back to the
+    host. `kernel` launches `per_query` times a query (one stacked [2B] encode), counted
+    over the queries. Returns the last query's rewards and the numbers."""
+    (frames0, frames_t), trajectory = reward_frames()
+    text = sentences()
+    reset_counts()
+    for i in range(REWARD_WARMUP + REWARD_QUERIES):
+        if i == REWARD_WARMUP:
+            t0 = time.perf_counter()
+        rewards = rm(frames0, frames_t, text).cpu()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts()
+    curve = rm.reward_curve(trajectory, text[0]).cpu()  # warms the 50-frame shape
+    t1 = time.perf_counter()
+    curve = rm.reward_curve(trajectory, text[0]).cpu()
+    curve_ms = (time.perf_counter() - t1) * 1e3
+    # where a query's time goes: the stacked encode, then tokenizing, DistilBERT and the head
+    both = np.concatenate([frames0, frames_t])
+    t2 = time.perf_counter()
+    emb = rm.embed(both)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    rm.get_reward(emb[:REWARD_PAIRS], emb[REWARD_PAIRS:], text).cpu()
+    t4 = time.perf_counter()
+    queries = REWARD_WARMUP + REWARD_QUERIES
+    if launches[kernel] != per_query * queries:
+        raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} times in "
+                             f"{queries} queries, expected {per_query} a query")
+    if not (rewards.shape == (REWARD_PAIRS,) and curve.shape == (CURVE_FRAMES,)
+            and torch.isfinite(rewards).all() and torch.isfinite(curve).all()):
+        raise AssertionError(f"{name}: rewards {rewards.shape}, curve {curve.shape}, "
+                             "or non-finite values")
+    return rewards, {"card": card(), "launches": launches,
+                     "queries_per_s": REWARD_QUERIES / elapsed,
+                     "pairs_per_s": REWARD_QUERIES * REWARD_PAIRS / elapsed,
+                     "ms_per_query": elapsed / REWARD_QUERIES * 1e3,
+                     "reward_curve_ms": curve_ms, "encode_ms": (t3 - t2) * 1e3,
+                     "language_and_head_ms": (t4 - t3) * 1e3}
+
+
+def reward_gap(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """Max abs difference of the card's parity rewards from the CPU's, held to
+    `REWARD_CPU_SHARE` of the CPU rewards' spread; returns both."""
+    spread = (want.max() - want.min()).item()
+    gap = (got - want).abs().max().item()
+    if not (spread > 0 and gap <= REWARD_CPU_SHARE * spread):
+        raise AssertionError(f"{name}: card and CPU rewards {gap} apart, more than "
+                             f"{REWARD_CPU_SHARE} of the spread {spread}")
+    return gap, spread
+
+
+def reward_resnet50(kept, bert, tmp: str) -> dict:
+    """The bf16 ResNet-50 train state saved as an ``.npz`` and scored through
+    `R3MRewardModel.from_snapshot` in parity and fast precision (K1 once a query), against
+    the same snapshot scored on the CPU."""
+    from r3m_tpu_torch.checkpoint import save_train_snapshot
+    from r3m_tpu_torch.reward import R3MRewardModel
+
+    cfg, state, _, _ = kept
+    snap = save_train_snapshot(tmp, state, cfg, keep_step_copy=False,
+                               extra_meta={"lang_max_len": LANG_LEN})
+    bert_path, vocab_path = write_language(tmp, bert)
+    out, rewards = {}, {}
+    for precision in ("parity", "fast"):
+        rm = R3MRewardModel.from_snapshot(snap, bert_path, vocab_path, precision=precision)
+        if rm.lang_max_len != LANG_LEN or rm.pad_mode != "fixed":
+            raise AssertionError(f"reward resnet50: {rm.lang_max_len} tokens, {rm.pad_mode}")
+        rewards[precision], out[precision] = score(f"reward resnet50 {precision}", rm, "K1", 1)
+        del rm
+    cpu = R3MRewardModel.from_snapshot(snap, bert_path, vocab_path, device="cpu")
+    (frames0, frames_t), _ = reward_frames()
+    want = cpu(frames0, frames_t, sentences())
+    gap, spread = reward_gap("reward resnet50", rewards["parity"], want)
+    gap_fast = (rewards["fast"] - rewards["parity"]).abs().max().item()
+    if not gap_fast <= REWARD_FAST_ATOL:
+        raise AssertionError(f"reward resnet50: fast {gap_fast} from parity, more than "
+                             f"{REWARD_FAST_ATOL}")
+    result = {"launches": {k: out["parity"]["launches"][k] + out["fast"]["launches"][k]
+                           for k in out["parity"]["launches"]},
+              "parity": out["parity"], "fast": out["fast"], "cpu_reward_spread": spread,
+              "cuda_vs_cpu_max_abs": gap, "fast_vs_parity_max_abs": gap_fast}
+    log(f"reward resnet50: {json.dumps(result)}")
+    return result
+
+
+def reference_snapshot(path: str, kept, bert) -> str:
+    """A reference-format ``snapshot.pt`` of a train state: ``module.convnet.*``,
+    ``module.lang_rew.*`` and the frozen DistilBERT as ``module.lang_enc.model.*``."""
+    _, state, _, _ = kept
+    sd = {f"module.{k}": v.detach().cpu() for k, v in state.model.state_dict().items()}
+    sd.update({f"module.lang_enc.model.{k}": v.detach().cpu()
+               for k, v in bert.state_dict().items()})
+    torch.save({"r3m": sd, "global_step": state.step}, path)
+    return path
+
+
+def reward_vit(pt: str, vocab_path: str) -> dict:
+    """The f32 ViT-B/32 state as a reference ``snapshot.pt`` scored through
+    `R3MRewardModel.from_torch_snapshot` with its embedded DistilBERT, parity (K3 12 times
+    a query), against the CPU."""
+    from r3m_tpu_torch.reward import R3MRewardModel
+
+    rm = R3MRewardModel.from_torch_snapshot(pt, None, vocab_path)
+    if rm.pad_mode != "longest" or rm.cfg.image_size != 224:
+        raise AssertionError(f"reward vit_b32: {rm.pad_mode}, {rm.cfg.image_size} px")
+    rewards, result = score("reward vit_b32", rm, "K3", 12)
+    del rm
+    cpu = R3MRewardModel.from_torch_snapshot(pt, None, vocab_path, device="cpu")
+    (frames0, frames_t), _ = reward_frames()
+    want = cpu(frames0, frames_t, sentences())
+    result["cuda_vs_cpu_max_abs"], result["cpu_reward_spread"] = reward_gap(
+        "reward vit_b32", rewards, want)
+    log(f"reward vit_b32: {json.dumps(result)}")
+    return result
+
+
+def convert_round_trip(pt: str, tmp: str) -> dict:
+    """The ViT ``snapshot.pt`` through ``convert to-native`` and ``to-torch``: every
+    ``convnet`` and ``lang_rew`` tensor comes back exactly."""
+    from r3m_tpu_torch import convert
+
+    npz, back = os.path.join(tmp, "vit_native.npz"), os.path.join(tmp, "vit_back.pt")
+    reset_counts()
+    t0 = time.perf_counter()
+    convert.main(["to-native", pt, npz])
+    t1 = time.perf_counter()
+    convert.main(["to-torch", npz, back])
+    t2 = time.perf_counter()
+    want = torch.load(pt, weights_only=True)
+    got = torch.load(back, weights_only=True)
+    keys = {k for k in want["r3m"] if "lang_enc" not in k}
+    if set(got["r3m"]) != keys or got["global_step"] != want["global_step"]:
+        raise AssertionError(f"convert: keys {sorted(set(got['r3m']) ^ keys)[:5]} differ, or "
+                             f"step {got['global_step']} != {want['global_step']}")
+    differ = [k for k in keys if not torch.equal(got["r3m"][k], want["r3m"][k])]
+    if differ:
+        raise AssertionError(f"convert: {len(differ)} tensors changed, e.g. {differ[:3]}")
+    result = {"launches": read_counts(), "tensors": len(keys), "to_native_s": t1 - t0,
+              "to_torch_s": t2 - t1,
+              "npz_bytes": os.path.getsize(npz)}
+    log(f"convert vit_b32: {json.dumps(result)}")
+    return result
+
+
+def embed_phase(model_pt: str, tmp: str) -> dict:
+    """The embed CLI over 130 PNG files of 240x320 (two batches of 64 and a tail of 2),
+    parity and fast: the paths in order, K1 once a batch, parity against `R3MEncoder` on
+    the same decoded arrays and fast against parity."""
+    from PIL import Image
+
+    import r3m_tpu_torch
+    from r3m_tpu_torch import embed
+
+    folder = os.path.join(tmp, "frames")
+    os.makedirs(folder)
+    rng = np.random.default_rng(SEED)
+    for i in range(EMBED_IMAGES):
+        Image.fromarray(rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)).save(
+            os.path.join(folder, f"frame{i:04d}.png"))
+    files = embed.collect_image_files([folder])
+    batches = -(-EMBED_IMAGES // EMBED_BATCH)
+    out, fps, total = {}, {}, {}
+    for precision in ("parity", "fast"):
+        path = os.path.join(tmp, f"embeddings_{precision}.npz")
+        reset_counts()
+        t0 = time.perf_counter()
+        embed.main([folder, "--model-file", model_pt, "--out", path,
+                    "--batch", str(EMBED_BATCH), "--precision", precision])
+        fps[precision] = EMBED_IMAGES / (time.perf_counter() - t0)
+        launches = read_counts()
+        total = {k: total.get(k, 0) + n for k, n in launches.items()}
+        if launches["K1"] != batches:
+            raise AssertionError(f"embed {precision}: K1 launched {launches['K1']} times for "
+                                 f"{batches} batches")
+        with np.load(path) as z:
+            if list(z["paths"]) != files:
+                raise AssertionError(f"embed {precision}: paths out of order")
+            out[precision] = torch.from_numpy(z["embeddings"])
+    t0 = time.perf_counter()
+    decoded = embed._load_images(files, 224)
+    decode_s = time.perf_counter() - t0
+    want = r3m_tpu_torch.load_r3m_from_files(model_pt)(decoded)
+    cos = float(cosine_rows(out["parity"], want).min())
+    cos_fast = float(cosine_rows(out["fast"], out["parity"]).min())
+    if not (out["parity"].shape == (EMBED_IMAGES, 2048) and cos > 0.9999
+            and cos_fast >= 0.9999):
+        raise AssertionError(f"embed: cosine {cos} against the encoder (> 0.9999), fast "
+                             f"{cos_fast} against parity (>= 0.9999)")
+    result = {"card": card(), "launches": total, "images": EMBED_IMAGES, "batch": EMBED_BATCH,
+              "decode_frames_per_s": EMBED_IMAGES / decode_s,
+              "frames_per_s_parity": fps["parity"], "frames_per_s_fast": fps["fast"],
+              "cosine_vs_encoder_min": cos, "fast_vs_parity_cosine_min": cos_fast}
+    log(f"embed resnet50: {json.dumps(result)}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi)
+    log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     from r3m_tpu_torch.models.distilbert import DistilBert
@@ -709,6 +973,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve_resnet50"] = serve("resnet50", resnet, 2048, "K1", 0.9999, tmp)
         del resnet
+        paths["embed_resnet50"] = embed_phase(os.path.join(tmp, "resnet50.pt"), tmp)
         # ViT-B/32 in bf16 carries its residual stream in bf16 through 12 layers, as the
         # JAX package's fast path does; with these N(0, 0.02) weights both packages'
         # fast paths land at cosine ~0.9999 against parity on the CPU, so the bound is
@@ -721,18 +986,24 @@ def main() -> int:
 
     torch.manual_seed(SEED)
     bert = DistilBert().to("cuda")  # distilbert-base geometry, seeded random weights
-    paths["train_resnet50"], kept = train("resnet50", 50, bert, gen, keep=True)
-    paths["snapshot_resume_resnet50"] = snapshot_resume("resnet50", kept, gen)
-    del kept
-    paths["train_vit_b32"] = train("vit_b32", 0, bert, gen)
-    paths["train_vit_b32_384"] = train("vit_b32_384", 0, bert, gen, timed_steps=TIMED_STEPS_384,
-                                       clips=TRAIN_384_CLIPS, image_size=384)
-    # The f32 step sets its own precision (true f32), whatever torch's TF32 flags say.
-    paths["train_vit_b32_f32"], kept = train("vit_b32_f32", 0, bert, gen, "float32",
-                                             TIMED_STEPS_F32, keep=True)
-    paths["snapshot_serve_vit_b32"] = snapshot_serve("vit_b32_f32", kept)
-    del bert, kept
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["train_resnet50"], kept = train("resnet50", 50, bert, gen, keep=True)
+        paths["snapshot_resume_resnet50"] = snapshot_resume("resnet50", kept, gen)
+        paths["reward_resnet50"] = reward_resnet50(kept, bert, tmp)
+        del kept
+        paths["train_vit_b32"] = train("vit_b32", 0, bert, gen)
+        paths["train_vit_b32_384"] = train("vit_b32_384", 0, bert, gen,
+                                           timed_steps=TIMED_STEPS_384,
+                                           clips=TRAIN_384_CLIPS, image_size=384)
+        # The f32 step sets its own precision (true f32), whatever torch's TF32 flags say.
+        paths["train_vit_b32_f32"], kept = train("vit_b32_f32", 0, bert, gen, "float32",
+                                                 TIMED_STEPS_F32, keep=True)
+        paths["snapshot_serve_vit_b32"] = snapshot_serve("vit_b32_f32", kept)
+        pt = reference_snapshot(os.path.join(tmp, "snapshot.pt"), kept, bert)
+        del bert, kept
+        torch.cuda.empty_cache()
+        paths["reward_vit_b32"] = reward_vit(pt, os.path.join(tmp, "vocab.txt"))
+        paths["convert_vit_b32"] = convert_round_trip(pt, tmp)
     for size, image_size in ((18, 32), (0, 64)):
         cuda_against_cpu(size, image_size)
 

@@ -6,7 +6,10 @@ public API, `load_r3m(modelid)` / `load_r3m_reproduce(modelid)` /
 in [0, 255] to embeddings. Reference ``model.pt`` files load natively, and so do native
 ``.npz`` snapshots of either package (`load_r3m_from_snapshot`). And it pretrains:
 `r3m_tpu_torch.training.trainer.make_train_step` is the R3M pretraining step, whose state
-`r3m_tpu_torch.checkpoint` saves and resumes in the JAX package's format. The ResNet
+`r3m_tpu_torch.checkpoint` saves and resumes in the JAX package's format. It scores the
+language-conditioned reward of a trained model (`R3MRewardModel`, with the WordPiece
+tokenizer and the frozen DistilBERT), and has the CLIs ``python -m
+r3m_tpu_torch.{embed,convert,prepare_language,verify_parity}``. The ResNet
 stem pool and the ViT attention, forward and backward, run hand-written CUDA kernels
 (``r3m_tpu_torch/csrc``), built at first use.
 
@@ -20,7 +23,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
-from r3m_tpu_torch.models.r3m import R3MConfig, R3MEncoder, r3m_embed  # noqa: F401
+from r3m_tpu_torch.convert import remove_language_head  # noqa: F401
+from r3m_tpu_torch.models.r3m import (  # noqa: F401
+    R3MConfig,
+    R3MEncoder,
+    r3m_embed,
+    r3m_init,
+    sim,
+)
 
 __version__ = "0.1.0"
 
@@ -28,6 +38,7 @@ __all__ = [
     "R3M",
     "R3MConfig",
     "R3MEncoder",
+    "R3MRewardModel",
     "VALID_ARGS",
     "cleanup_config",
     "load_r3m",
@@ -35,7 +46,20 @@ __all__ = [
     "load_r3m_from_snapshot",
     "load_r3m_reproduce",
     "r3m_embed",
+    "r3m_init",
+    "remove_language_head",
+    "sim",
 ]
+
+
+def __getattr__(name: str):
+    """`R3MRewardModel` is imported on first use, as in the JAX package."""
+    if name == "R3MRewardModel":
+        from r3m_tpu_torch.reward import R3MRewardModel
+
+        return R3MRewardModel
+    raise AttributeError(f"module 'r3m_tpu_torch' has no attribute {name!r}")
+
 
 # Constructor args accepted from checkpoint configs (r3m/__init__.py:15).
 VALID_ARGS = [
@@ -105,21 +129,21 @@ def load_r3m_from_files(
     `configpath`, if given, its ``config.yaml`` (which needs pyyaml). The weights decide
     the backbone and, for a ViT, the crop size, whatever the config says.
     """
-    from r3m_tpu_torch.checkpoint import load_convnet
+    from r3m_tpu_torch.checkpoint import load_torch_checkpoint
     from r3m_tpu_torch.models.r3m import resolve_device
 
     if modelpath.endswith(".npz"):
         return load_r3m_from_snapshot(modelpath, precision=precision, device=device)
     device = resolve_device(device)  # fail before reading hundreds of MB
     cfg = _config_from_yaml(configpath) if configpath is not None else R3MConfig()
-    sd, size, image_size = load_convnet(modelpath)
+    bundle = load_torch_checkpoint(modelpath)
     cfg = dataclasses.replace(
         cfg,
-        size=size,
+        size=bundle["size"],
         langweight=0.0,
-        image_size=image_size if image_size is not None else cfg.image_size,
+        image_size=bundle["image_size"] or cfg.image_size,
     )
-    return R3MEncoder(cfg, sd, precision=precision, device=device)
+    return R3MEncoder(cfg, bundle["convnet"], precision=precision, device=device)
 
 
 def load_r3m_from_snapshot(path: str, precision: str = "parity", device=None) -> R3MEncoder:

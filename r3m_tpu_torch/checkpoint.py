@@ -13,8 +13,9 @@ of the reference (train_representation.py:123-138).
 
 Reference artifacts (``model.pt`` / ``snapshot.pt``) load natively: the state dict keeps
 the reference's names and layouts, and only the ``module.convnet.`` prefix comes off
-(`r3m_tpu_torch.convert.convnet_state`); `import_torch_snapshot_to_state` and
-`export_torch_snapshot` carry a train state in and out of that format.
+(`load_torch_checkpoint`, which also gives the language head and an embedded DistilBERT);
+`import_torch_snapshot_to_state` and `export_torch_snapshot` carry a train state in and out
+of that format.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from r3m_tpu_torch.convert import (
     canonical_path,
     canonical_tree,
+    convert_language_stack,
     convnet_state,
     from_canonical,
     get_path,
@@ -127,7 +129,8 @@ def train_tree(state, cfg=None) -> Dict:
     ``params`` and ``batch_stats`` in the JAX package's names and layouts; ``opt_state``
     in optax's exact nesting, so that its loader pairs the leaves by position:
     ``[[count, mu, nu], []]`` for Adam (``[count]`` in place of ``[]`` when ``cfg.lr`` is a
-    schedule string), ``[[[]], [[]], [], [trace]]`` for LARS, every moment in the layout of
+    schedule string; count the optimizer's updates, 0 for a fresh one whatever the step),
+    ``[[[]], [[]], [], [trace]]`` for LARS, every moment in the layout of
     its parameter (a conv moment transposed as its kernel is); ``key``, the ``uint32[2]``
     JAX key ``[step, seed]`` of the port generator's seed (the JAX loader cannot use the
     generator); and the port generator's own state, which only the port reads.
@@ -141,7 +144,9 @@ def train_tree(state, cfg=None) -> Dict:
         return canonical_tree((n, opt.state[p][key] if key in opt.state.get(p, ())
                                else torch.zeros_like(p)) for n, p in named)
 
-    count = np.asarray(state.step, np.int32)
+    # optax's count is the optimizer's own: 0 for a fresh one, whatever the global step
+    steps = [s["step"] for s in opt.state.values() if "step" in s]
+    count = np.asarray(int(steps[0]) if steps else 0, np.int32)
     if isinstance(opt, Lars):
         opt_state = [[[]], [[]], [], [moments("trace")]]
     else:  # the JAX optimizer takes a string lr as a schedule, with a count of its own
@@ -346,32 +351,44 @@ def torch_payload_state_dict(payload) -> Dict:
     return payload
 
 
-def load_convnet(path: str) -> Tuple[Dict[str, Any], int, Optional[int]]:
-    """``(backbone state dict, size, image size or None)`` of a reference artifact."""
-    return convnet_state(torch_payload_state_dict(load_torch_payload(path)))
+def load_torch_checkpoint(path: str, include_language: bool = False) -> Dict[str, Any]:
+    """A reference ``model.pt`` / ``snapshot.pt`` in the port's torch names: ``{"convnet":
+    backbone state dict (no ``convnet.`` prefix), "size", "image_size" (a ViT's, from its
+    position table; None for a ResNet), "lang_rew", "lang_enc"}`` (both None unless
+    `include_language`; see `r3m_tpu_torch.convert.convert_language_stack`), and
+    ``"global_step"`` when the payload carries one (train_representation.py:129)."""
+    payload = load_torch_payload(path)
+    sd = strip_prefix(dict(torch_payload_state_dict(payload)))
+    convnet, size, image_size = convnet_state(sd)
+    bundle: Dict[str, Any] = {"convnet": convnet, "size": size, "image_size": image_size,
+                              "lang_rew": None, "lang_enc": None}
+    if include_language:
+        bundle.update(convert_language_stack(sd))
+    if isinstance(payload, dict) and "global_step" in payload:
+        bundle["global_step"] = int(payload["global_step"])
+    return bundle
+
+
+def import_bundle_to_state(bundle: Dict[str, Any], state):
+    """Seed a port `TrainState` from a `load_torch_checkpoint` bundle (loaded with its
+    language): the backbone's parameters and BatchNorm statistics, and the reward head when
+    the state has one; the step from ``global_step`` (0 without). The optimizer restarts
+    fresh, as in the JAX package."""
+    model = state.model
+    if model.lang_rew is not None and bundle["lang_rew"] is None:
+        raise ValueError("state expects lang_rew but torch snapshot has none")
+    model.convnet.load_state_dict(bundle["convnet"])
+    if model.lang_rew is not None:
+        model.lang_rew.load_state_dict(bundle["lang_rew"])
+    state.optimizer.state.clear()
+    state.step = bundle.get("global_step", 0)
+    return state
 
 
 def import_torch_snapshot_to_state(path: str, state):
     """Seed a port `TrainState` from a reference torch snapshot (``{"r3m": state_dict,
-    "global_step"}``): the backbone's parameters and BatchNorm statistics, and the reward
-    head when the state has one; the step from ``global_step``. The optimizer restarts
-    fresh, as in the JAX package."""
-    payload = load_torch_payload(path)
-    sd = strip_prefix(dict(torch_payload_state_dict(payload)))
-    model = state.model
-    if model.lang_rew is not None and not any(k.startswith("lang_rew.") for k in sd):
-        raise ValueError("state expects lang_rew but torch snapshot has none")
-    parts = {"convnet": model.convnet, "lang_rew": model.lang_rew}
-    for prefix, module in parts.items():
-        if module is not None:
-            module.load_state_dict({k[len(prefix) + 1:]: v for k, v in sd.items()
-                                    if k.startswith(prefix + ".")})
-    state.optimizer.state.clear()
-    if isinstance(payload, dict) and "global_step" in payload:
-        state.step = int(payload["global_step"])
-    else:
-        state.step = 0
-    return state
+    "global_step"}``), as `import_bundle_to_state` says."""
+    return import_bundle_to_state(load_torch_checkpoint(path, include_language=True), state)
 
 
 def export_torch_snapshot(path: str, state, data_parallel: bool = True) -> str:

@@ -11,7 +11,12 @@ The other way, `canonical_path` names where each `R3MModel` tensor lives in the 
 package's canonical tree (unpacked BatchNorm, as its snapshots hold it) and how its layout
 changes, and `canonical_tree` builds that tree from named tensors: the port's copy of the
 JAX ``convert_resnet`` / ``convert_linear`` / ``convert_language_reward`` and ``convert_vit``.
-The numpy input is all it reads: it imports nothing of JAX.
+`convert_language_stack` takes a reference state dict's reward head and embedded DistilBERT,
+and `distilbert_tree` writes an HF DistilBERT as the JAX package's pytree. The numpy input
+is all it reads: it imports nothing of JAX. `main` is the conversion CLI::
+
+    python -m r3m_tpu_torch.convert to-native snapshot.pt out.npz
+    python -m r3m_tpu_torch.convert to-torch  snapshot.npz out.pt
 """
 
 from __future__ import annotations
@@ -22,7 +27,13 @@ from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from r3m_tpu_torch.models.distilbert import DistilBert, DistilBertConfig
+from r3m_tpu_torch.models.distilbert import (
+    DistilBert,
+    _normalize_hf_state,
+    bert_from_state,
+    config_from_params,
+    distilbert_config_from_state,
+)
 from r3m_tpu_torch.models.r3m import R3MConfig, R3MModel
 from r3m_tpu_torch.models.resnet import RESNET_SPECS
 from r3m_tpu_torch.models.vit import require_b32_geometry, vit_config_from_state
@@ -306,13 +317,133 @@ def distilbert_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def distilbert_from_jax(params: Mapping, n_heads: int = 12) -> DistilBert:
     """A JAX DistilBERT pytree as a frozen `DistilBert` on the CPU. Every dimension comes
-    from the shapes except `n_heads`, which none shows (12 in distilbert-base)."""
-    vocab, dim = np.shape(params["embeddings"]["word"])
-    cfg = DistilBertConfig(
-        vocab_size=int(vocab), dim=int(dim), n_layers=len(params["layers"]),
-        n_heads=n_heads, hidden_dim=int(np.shape(params["layers"][0]["lin1"]["w"])[1]),
-        max_position_embeddings=int(np.shape(params["embeddings"]["pos"])[0]),
+    from the shapes; `n_heads`, which none shows, is the caller's (`load_bert` passes the
+    snapshot's ``bert_config``)."""
+    return bert_from_state(distilbert_state_from_jax(params), config_from_params(params, n_heads))
+
+
+def distilbert_tree(sd: StateDict) -> Dict[str, Any]:
+    """The JAX package's DistilBERT pytree (f32 numpy) from an HF ``DistilBertModel`` state
+    dict, ``DistilBertFor*`` saves included: the port of the JAX ``convert_distilbert``."""
+    sd = _normalize_hf_state(sd)
+    cfg = distilbert_config_from_state(sd)
+
+    def a(key):
+        return np.asarray(torch.as_tensor(sd[key]).detach().cpu().numpy(), dtype=np.float32)
+
+    def lin(key):
+        return {"w": a(f"{key}.weight").T, "b": a(f"{key}.bias")}
+
+    def ln(key):
+        return {"scale": a(f"{key}.weight"), "bias": a(f"{key}.bias")}
+
+    layers = []
+    for i in range(cfg.n_layers):
+        base = f"transformer.layer.{i}"
+        layers.append({
+            "q": lin(f"{base}.attention.q_lin"), "k": lin(f"{base}.attention.k_lin"),
+            "v": lin(f"{base}.attention.v_lin"), "o": lin(f"{base}.attention.out_lin"),
+            "sa_ln": ln(f"{base}.sa_layer_norm"), "lin1": lin(f"{base}.ffn.lin1"),
+            "lin2": lin(f"{base}.ffn.lin2"), "out_ln": ln(f"{base}.output_layer_norm"),
+        })
+    return {"embeddings": {"word": a("embeddings.word_embeddings.weight"),
+                           "pos": a("embeddings.position_embeddings.weight"),
+                           "ln": ln("embeddings.LayerNorm")},
+            "layers": layers}
+
+
+def remove_language_head(sd: StateDict) -> Dict[str, Any]:
+    """Drop lang_enc/lang_rew entries (reference r3m/__init__.py:35-42)."""
+    return {k: v for k, v in sd.items() if "lang_enc" not in k and "lang_rew" not in k}
+
+
+_LANG_REW_KEYS = [f"lang_rew.pred.{i}.{p}" for i in (0, 2, 4, 6, 8) for p in ("weight", "bias")]
+
+
+def convert_language_stack(sd: StateDict) -> Dict[str, Any]:
+    """The language parts of a prefix-stripped R3M state dict, in the port's torch names:
+    ``{"lang_rew": LanguageReward state dict (pred.*) | None, "lang_enc": {"state": HF
+    DistilBertModel state dict, "cfg": DistilBertConfig} | None}``.
+
+    The head counts only when all five ``lang_rew.pred.{0,2,4,6,8}`` Linears are there
+    (stray keys of a partly stripped artifact are no head). A language-trained reference
+    snapshot embeds its frozen DistilBERT under ``lang_enc.model.`` (the reference
+    registers LangEncoder as a submodule, models_r3m.py:70), with 12 heads assumed.
+    """
+    out: Dict[str, Any] = {"lang_rew": None, "lang_enc": None}
+    if all(k in sd for k in _LANG_REW_KEYS):
+        out["lang_rew"] = {k[len("lang_rew."):]: torch.as_tensor(sd[k]) for k in _LANG_REW_KEYS}
+    prefix = "lang_enc.model."
+    enc = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    if enc:
+        out["lang_enc"] = {"state": enc, "cfg": distilbert_config_from_state(enc)}
+    return out
+
+
+def main(argv=None) -> int:
+    """Convert checkpoints between the reference torch format and native ``.npz``.
+
+        python -m r3m_tpu_torch.convert to-native snapshot.pt out.npz
+        python -m r3m_tpu_torch.convert to-torch  snapshot.npz out.pt
+
+    to-native builds a train state to the bundle's backbone, crop size and head (its widths
+    read from the weights), with a fresh optimizer (torch Adam state does not carry over),
+    and writes it as a train snapshot with its config; to-torch writes the reference's
+    pickled ``{"r3m", "global_step"}`` payload (``module.convnet.*`` names). The state
+    passes through ``--device`` (default cuda).
+    """
+    import argparse
+    import dataclasses
+    from types import SimpleNamespace
+
+    from r3m_tpu_torch.checkpoint import (
+        export_torch_snapshot,
+        import_bundle_to_state,
+        load_snapshot,
+        load_torch_checkpoint,
+        r3m_config_from_meta,
+        save_snapshot,
+        train_tree,
     )
-    model = DistilBert(cfg)
-    model.load_state_dict(distilbert_state_from_jax(params))
-    return model
+    from r3m_tpu_torch.models.r3m import resolve_device
+    from r3m_tpu_torch.training.trainer import create_train_state
+
+    p = argparse.ArgumentParser(prog="python -m r3m_tpu_torch.convert",
+                                description=main.__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+    for cmd, what in (("to-native", "torch snapshot/model.pt -> .npz"),
+                      ("to-torch", "native .npz snapshot -> torch .pt")):
+        sp = sub.add_parser(cmd, help=what)
+        sp.add_argument("src")
+        sp.add_argument("out")
+        sp.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+
+    if args.cmd == "to-native":
+        bundle = load_torch_checkpoint(args.src, include_language=True)
+        cfg = R3MConfig(
+            size=bundle["size"],
+            # a ViT's position table fixes the crop size, and so the template's shapes
+            image_size=bundle["image_size"] or R3MConfig.image_size,
+        )
+        if bundle["lang_rew"] is not None:  # the template's head is the bundle's
+            hidden, width = bundle["lang_rew"]["pred.0.weight"].shape
+            cfg = dataclasses.replace(cfg, langweight=1.0, hidden_dim=int(hidden),
+                                      lang_dim=int(width) - 2 * cfg.out_dim)
+        state = import_bundle_to_state(bundle, create_train_state(cfg, 0, device=device))
+        save_snapshot(args.out, train_tree(state, cfg),
+                      {"global_step": state.step, "config": dataclasses.asdict(cfg)})
+    else:
+        tree, meta = load_snapshot(args.src)
+        params = tree["params"]
+        cfg = r3m_config_from_meta(meta, langweight=1.0 if "lang_rew" in params else 0.0)
+        model = model_from_jax(cfg, params, tree.get("batch_stats", {})).to(device)
+        export_torch_snapshot(
+            args.out, SimpleNamespace(model=model, step=int(meta.get("global_step", 0))))
+    print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

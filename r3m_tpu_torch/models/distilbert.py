@@ -5,7 +5,8 @@ The reference's `LangEncoder` (``models_language.py:13-35``): a frozen pretraine
 padding tokens included (the reference pools with ``.mean(1)`` over the padded batch).
 `DistilBert` is an ``nn.Module`` with HF ``DistilBertModel`` state-dict names, so an HF
 save loads as it is; `distilbert_state_from_jax` in ``r3m_tpu_torch.convert`` carries the
-JAX package's pytree over.
+JAX package's pytree over. `load_bert` reads either file (a JAX-format ``distilbert.npz``
+or an HF torch state dict) into a frozen module on the device.
 
 Eval mode only, f32, never differentiated: post-LayerNorm layers (eps 1e-12), exact
 (erf) GELU, learned position embeddings, an additive ``finfo(float32).min`` mask on padded
@@ -16,7 +17,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
+from typing import Any, Dict, Mapping
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -112,3 +116,89 @@ def sentence_embedding(
     """The reference's pooling: the plain mean over ALL tokens, padding included, so the
     embedding depends on the padded length (callers pad to a fixed length)."""
     return model(input_ids, attention_mask).mean(dim=1)
+
+
+def bert_from_state(sd: Mapping[str, torch.Tensor], cfg: DistilBertConfig) -> DistilBert:
+    """A frozen `DistilBert` of `cfg` holding the HF-named f32 tensors of `sd`, on the CPU;
+    keys `cfg` does not use (an old save's ``embeddings.position_ids``) are ignored."""
+    with torch.device("meta"):
+        model = DistilBert(cfg)
+    missing = [k for k in model.state_dict() if k not in sd]
+    if missing:
+        raise ValueError(f"DistilBERT state dict lacks {missing[:3]} ({len(missing)} keys)")
+    model.load_state_dict(
+        {k: torch.as_tensor(sd[k]).to(torch.float32) for k in model.state_dict()}, assign=True)
+    return model
+
+
+def _normalize_hf_state(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Accept ``DistilBertFor*`` saves: the bare encoder lives under a ``distilbert.``
+    prefix there, which comes off so the plain ``DistilBertModel`` layout applies."""
+    if "embeddings.word_embeddings.weight" not in sd and any(
+            k.startswith("distilbert.") for k in sd):
+        return {k[len("distilbert."):]: v for k, v in sd.items() if k.startswith("distilbert.")}
+    return dict(sd)
+
+
+def distilbert_config_from_state(sd: Mapping[str, Any], n_heads: int = 12) -> DistilBertConfig:
+    """The architecture of an HF ``DistilBertModel`` state dict. Every dimension comes from
+    the shapes except `n_heads`, which none shows (12 in distilbert-base, the only encoder
+    the reference loads, models_language.py:18-21)."""
+    sd = _normalize_hf_state(sd)
+    vocab, dim = sd["embeddings.word_embeddings.weight"].shape
+    layer_ids = [int(m.group(1)) for k in sd
+                 if (m := re.match(r"transformer\.layer\.(\d+)\.", k))]
+    if not layer_ids:
+        raise ValueError(
+            "state dict has no transformer.layer.* keys — expected an HF "
+            "DistilBertModel layout (embeddings.* + transformer.layer.N.*); "
+            f"got keys like {sorted(sd)[:3]}"
+        )
+    return DistilBertConfig(
+        vocab_size=int(vocab),
+        dim=int(dim),
+        n_layers=1 + max(layer_ids),
+        n_heads=n_heads,
+        hidden_dim=int(sd["transformer.layer.0.ffn.lin1.weight"].shape[0]),
+        max_position_embeddings=int(sd["embeddings.position_embeddings.weight"].shape[0]),
+    )
+
+
+def config_from_params(params: Mapping, n_heads: int = 12) -> DistilBertConfig:
+    """The architecture of the JAX package's DistilBERT pytree (``embeddings{word,pos,ln}``,
+    ``layers[...]``), as `distilbert_config_from_state` reads a state dict; prefer the
+    ``bert_config`` metadata of a snapshot, which also holds `n_heads`."""
+    vocab, dim = np.shape(params["embeddings"]["word"])
+    return DistilBertConfig(
+        vocab_size=int(vocab),
+        dim=int(dim),
+        n_layers=len(params["layers"]),
+        n_heads=n_heads,
+        hidden_dim=int(np.shape(params["layers"][0]["lin1"]["w"])[1]),
+        max_position_embeddings=int(np.shape(params["embeddings"]["pos"])[0]),
+    )
+
+
+def load_bert(path: str, device=None) -> DistilBert:
+    """Frozen DistilBERT weights from `path` as a `DistilBert` on `device` (``"cuda"``
+    unless given); the port of ``load_bert_params`` (``r3m_tpu/training/workspace.py``).
+
+    A ``.npz`` is a snapshot of the JAX package's pytree (as `r3m_tpu_torch.prepare_language`
+    writes it): its ``bert_config`` metadata gives the architecture, `n_heads` included;
+    without it the shapes do, with 12 heads. Any other file is an HF torch state dict
+    (``DistilBertModel`` or ``DistilBertFor*``), 12 heads.
+    """
+    from r3m_tpu_torch.checkpoint import load_snapshot
+    from r3m_tpu_torch.convert import distilbert_state_from_jax
+    from r3m_tpu_torch.models.r3m import resolve_device
+
+    device = resolve_device(device)
+    if path.endswith(".npz"):
+        tree, meta = load_snapshot(path)
+        bert_config = meta.get("bert_config")
+        cfg = DistilBertConfig(**bert_config) if bert_config else config_from_params(tree)
+        sd = distilbert_state_from_jax(tree)
+    else:
+        sd = _normalize_hf_state(torch.load(path, map_location="cpu", weights_only=True))
+        cfg = distilbert_config_from_state(sd)
+    return bert_from_state(sd, cfg).to(device)

@@ -33,3 +33,12 @@ class LanguageReward(nn.Module):
         """Score ``[N, D], [N, D], [N, L] -> [N]`` (any leading batch shape), in f32."""
         x = torch.cat([e0, eg, le], dim=-1).to(torch.float32)
         return self.pred(x).squeeze(-1)
+
+
+def language_reward_from_state(sd, im_dim: int) -> LanguageReward:
+    """A `LanguageReward` holding the state dict `sd` (``pred.*``) on the CPU; its hidden
+    and language widths are read from the weights."""
+    hidden, width = sd["pred.0.weight"].shape
+    model = LanguageReward(im_dim, int(hidden), int(width) - 2 * im_dim)
+    model.load_state_dict(sd)
+    return model

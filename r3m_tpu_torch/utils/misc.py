@@ -1,10 +1,12 @@
-"""The learning-rate schedule grammar, the port of ``schedule_fn`` in
-``r3m_tpu/utils/misc.py`` (the reference's ``schedule()``, utils.py:143-163)."""
+"""Host helpers, the port of ``r3m_tpu/utils/misc.py``'s: the learning-rate schedule grammar
+(the reference's ``schedule()``, utils.py:143-163) and tail-batch padding."""
 
 from __future__ import annotations
 
 import re
 from typing import Callable, Union
+
+import numpy as np
 
 
 def schedule_fn(schdl: Union[str, float]) -> Callable[[int], float]:
@@ -40,3 +42,15 @@ def schedule_fn(schdl: Union[str, float]) -> Callable[[int], float]:
 
         return step_linear
     raise NotImplementedError(schdl)
+
+
+def pad_batch(arr: np.ndarray, n: int) -> np.ndarray:
+    """Pad axis 0 to length `n` by repeating the last element.
+
+    A tail batch padded to the fixed chunk size keeps one input shape for the whole job;
+    callers slice the padded rows off the output (the embed CLI).
+    """
+    m = arr.shape[0]
+    if m >= n:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[-1:], n - m, axis=0)])

@@ -410,6 +410,110 @@ def test_every_parameter_gets_a_gradient_on_the_card(gen, size, image_size):
         assert torch.isfinite(p.grad).all() and (p.grad != 0).any(), name
 
 
+REWARD_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "pick", "up", "the", "cup", "open",
+                "door", "drawer"]
+REWARD_SENTENCES = ["pick up the cup", "open the door", "open the drawer slowly"]
+# Card against CPU in parity: the same f32 reward up to the order of f32 sums in the
+# encoder; fast (bf16 encoder) against parity: the bf16 embedding's rounding.
+REWARD_ATOL = {"parity": 1e-4, "fast": 5e-2}
+
+
+def _reward_artifacts(tmp_path, size, image_size):
+    """A small port train snapshot with its reward head, a 2-layer DistilBERT of 4 heads
+    written with ``bert_config`` metadata, and a vocab, from fixed seeds."""
+    import dataclasses
+
+    from r3m_tpu_torch.checkpoint import save_snapshot, save_train_snapshot
+    from r3m_tpu_torch.convert import distilbert_tree
+
+    cfg = R3MConfig(size=size, hidden_dim=32, langweight=1.0, lang_dim=64,
+                    image_size=image_size)
+    snap = save_train_snapshot(str(tmp_path), create_train_state(cfg, 0, device="cpu"), cfg)
+    torch.manual_seed(0)
+    bert = DistilBert(DistilBertConfig(vocab_size=len(REWARD_VOCAB), dim=64, n_layers=2,
+                                       n_heads=4, hidden_dim=96, max_position_embeddings=40))
+    bert_path = str(tmp_path / "distilbert.npz")
+    save_snapshot(bert_path, distilbert_tree(bert.state_dict()),
+                  {"bert_config": dataclasses.asdict(bert.cfg)})
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(REWARD_VOCAB) + "\n")
+    return snap, bert_path, str(vocab)
+
+
+@pytest.mark.parametrize("precision", ["parity", "fast"])
+@pytest.mark.parametrize("size,image_size", [(18, 32), (0, 64)])
+def test_reward_on_the_card_matches_the_cpu(gen, tmp_path, size, image_size, precision):
+    """Rewards of image pairs and a reward curve on the card, through K1 (one stacked pass
+    a query) or K3 (12 launches a pass), against the port on the CPU."""
+    from r3m_tpu_torch.reward import R3MRewardModel
+
+    arts = _reward_artifacts(tmp_path, size, image_size)
+    cuda = R3MRewardModel.from_snapshot(*arts, precision=precision)
+    cpu = R3MRewardModel.from_snapshot(*arts, device="cpu")
+    rng = np.random.default_rng(0)
+    im0, imt = (rng.integers(0, 256, (3, 3, image_size, image_size), np.uint8)
+                for _ in range(2))
+    counter, per_pass = ((maxpool_3x3s2_fwd, 1) if size else (fused_attention_fwd, 12))
+    before = counter.launches
+    got = cuda(im0, imt, REWARD_SENTENCES)
+    curve = cuda.reward_curve(np.concatenate([im0, imt]), "open the door")
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2 * per_pass
+    assert got.device.type == "cuda" and got.dtype == torch.float32 and got.shape == (3,)
+    want = cpu(im0, imt, REWARD_SENTENCES)
+    want_curve = cpu.reward_curve(np.concatenate([im0, imt]), "open the door")
+    atol = REWARD_ATOL[precision]
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+    torch.testing.assert_close(curve.cpu(), want_curve, rtol=0, atol=atol)
+
+
+def test_reward_does_not_move_with_the_callers_tf32_flags(gen, tmp_path):
+    """DistilBERT and the reward MLP run in true f32 on the card whatever the caller
+    allows: the rewards with TF32 allowed equal those with it off."""
+    from r3m_tpu_torch.reward import R3MRewardModel
+
+    rm = R3MRewardModel.from_snapshot(*_reward_artifacts(tmp_path, 18, 32))
+    rng = np.random.default_rng(1)
+    e0, es = (rng.standard_normal((3, 512)).astype(np.float32) for _ in range(2))
+    saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    out = {}
+    try:
+        for allow, matmul in ((False, "highest"), (True, "medium")):
+            torch.backends.cudnn.allow_tf32 = allow
+            torch.set_float32_matmul_precision(matmul)
+            out[allow] = rm.get_reward(e0, es, REWARD_SENTENCES).cpu()
+            assert (torch.backends.cudnn.allow_tf32,
+                    torch.get_float32_matmul_precision()) == (allow, matmul)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    torch.testing.assert_close(out[True], out[False], rtol=1e-6, atol=0)
+
+
+def test_embed_cli_on_the_card_matches_the_cpu(gen, tmp_path):
+    """Seven PNG files in batches of 3 (two full and a padded tail of one): three K1
+    launches, the same paths and embeddings as ``--device cpu``."""
+    image = pytest.importorskip("PIL.Image")
+    from r3m_tpu_torch import embed
+    from r3m_tpu_torch.models.resnet import ResNet
+
+    torch.manual_seed(0)
+    pt = str(tmp_path / "model.pt")
+    torch.save({"r3m": {f"module.convnet.{k}": v for k, v in ResNet(18).state_dict().items()}},
+               pt)
+    rng = np.random.default_rng(0)
+    for i in range(7):
+        image.fromarray(rng.integers(0, 256, (240, 300, 3), np.uint8)).save(
+            tmp_path / f"f{i}.png")
+    args = [str(tmp_path), "--model-file", pt, "--batch", "3"]
+    before = maxpool_3x3s2_fwd.launches
+    got = np.load(embed.main(args + ["--out", str(tmp_path / "cuda.npz")]))
+    assert maxpool_3x3s2_fwd.launches == before + 3
+    want = np.load(embed.main(args + ["--out", str(tmp_path / "cpu.npz"), "--device", "cpu"]))
+    assert list(got["paths"]) == list(want["paths"]) and got["embeddings"].shape == (7, 512)
+    np.testing.assert_allclose(got["embeddings"], want["embeddings"], rtol=1e-3, atol=1e-3)
+
+
 def _small_f32_step_inputs():
     """A ResNet-18 at 32 px with a language head, a small frozen DistilBERT, a batch, its
     permutations and crops, all from fixed seeds."""
@@ -477,3 +581,4 @@ def test_f32_step_is_true_f32_whatever_the_callers_tf32_flags(gen):
     for name, want in g_off.items():
         err = (g_on[name] - want).norm().item()
         assert err <= 1e-6 * want.norm().item(), f"{name}: relative L2 error {err}"
+
