@@ -58,9 +58,24 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    embedded (``module.lang_enc.model.*``), scored through ``from_torch_snapshot`` the same
    way in parity, K3 12 times a query, against the CPU; and that ``snapshot.pt`` through
    the convert CLI, ``to-native`` then ``to-torch``: every tensor comes back exactly;
-11. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card and on the CPU from
+11. the Ego4D training path (``ego4d_train_resnet50``): an Ego4D-layout dataset written
+   by `write_synthetic_dataset` (48 videos of 12-40 JPEG frames at 224 px, captions of the
+   reward sentences) and the training phases' DistilBERT; `Workspace` on the repo's
+   ``cfgs/config_rep.yaml`` with the README's settings (ResNet-50, langweight 1, rctraj,
+   bf16, 64 clips a step, one decode thread a core), 25 steps with an eval and a snapshot
+   every 10 (phase A), then a second `Workspace` on the same folder that auto-resumes
+   from A's last snapshot with the data stream fast-forwarded and trains 10 more (phase
+   B). It prints the JPEG decoder that ran (native, or PIL and why), the host's cores, the
+   delivered train frames/s, the input wait's share of the step time and the host's
+   share queueing the steps over the steps
+   after each phase's first two, beside the device-only frames/s of phase 6, the snapshot
+   and resume seconds, and K1/K2's launches (K2 once a step, K1 once a step and once an
+   eval batch); the loss is finite and both CSV files hold their rows. Then the native
+   decoder against PIL on 300 of the dataset's frames, where the native library built
+   (mean abs difference at most 1 grey level);
+12. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card and on the CPU from
    the same state, batch, permutations and crops: loss and gradients agree;
-12. one JSON line with every kernel's numbers, then the result line.
+13. one JSON line with every kernel's numbers, then the result line.
 
 Each path's launch counts are set to 0 just before it runs and read just after; the
 kernel checks of phase 3 are not counted. Uses no JAX: the port is checked against its
@@ -70,6 +85,7 @@ own plain versions and its CPU path.
 from __future__ import annotations
 
 import copy
+import csv
 import dataclasses
 import json
 import os
@@ -140,6 +156,17 @@ REWARD_FAST_ATOL = 5e-2
 VERBS = ("pick up", "open", "close", "put down", "wipe", "turn", "lift", "pour water into")
 OBJECTS = ("the cup", "the drawer", "the door", "a bowl on the table", "the counter with a cloth",
            "the knob slowly")
+# The Ego4D path: the data mode of the JAX package's bench.py (48 videos of 12-40 frames
+# at 224 px); phase A's steps and phase B's, an eval and a snapshot every 10 steps; the
+# steps at the start of each phase that the delivered rate leaves out; the frames the
+# decoders are held against each other on, and the mean abs difference they may have.
+EGO4D_VIDEOS = 48
+EGO4D_STEPS_A = 25
+EGO4D_STEPS_B = 10
+EGO4D_EVAL_FREQ = 10
+EGO4D_WARMUP = 2
+DECODE_CHECK_FRAMES = 300
+DECODE_MEAN_ATOL = 1.0
 
 
 def log(msg: str) -> None:
@@ -930,6 +957,144 @@ def embed_phase(model_pt: str, tmp: str) -> dict:
     return result
 
 
+def decoder_check(root: str) -> dict:
+    """The native decoder against PIL on the dataset's first frames, where the native
+    library built: max and mean abs difference (the mean within `DECODE_MEAN_ATOL`), and
+    each decoder's frames/s on this host (native on one thread a core, PIL on one)."""
+    from r3m_tpu_torch.data.decoder import JpegDecoder, decoder_status
+
+    paths = sorted(os.path.join(d, f) for d, _, files in os.walk(root)
+                   for f in files if f.endswith(".jpg"))[:DECODE_CHECK_FRAMES]
+    dec = JpegDecoder(224, 224)
+    t0 = time.perf_counter()
+    pil = dec._decode_batch_pil(paths, np.empty((len(paths), 224, 224, 3), np.uint8))
+    result = {"frames": len(paths), "pil_frames_per_s": len(paths) / (time.perf_counter() - t0)}
+    if not dec.native:
+        result["native"] = f"not built: {decoder_status()[1]}"
+        log(f"decoders: {json.dumps(result)}")
+        return result
+    t0 = time.perf_counter()
+    native = dec.decode_batch(paths)
+    result["native_frames_per_s"] = len(paths) / (time.perf_counter() - t0)
+    diff = np.abs(native.astype(np.int16) - pil.astype(np.int16))
+    result.update(max_abs=int(diff.max()), mean_abs=float(diff.mean()))
+    log(f"decoders: {json.dumps(result)}")
+    if not result["mean_abs"] <= DECODE_MEAN_ATOL:
+        raise AssertionError(f"native and PIL decoders {result['mean_abs']} grey levels apart "
+                             f"on average (at most {DECODE_MEAN_ATOL})")
+    return result
+
+
+def ego4d_train(bert, tmp: str, device_only: dict) -> dict:
+    """`Workspace` over an Ego4D-layout dataset at the README's settings: phase A trains
+    from scratch, phase B auto-resumes from A's last snapshot; delivered frames/s and the
+    input wait over each phase's steps after its first `EGO4D_WARMUP`."""
+    from r3m_tpu_torch.data.decoder import decoder_status
+    from r3m_tpu_torch.data.ego4d import write_synthetic_dataset
+    from r3m_tpu_torch.training.workspace import Workspace
+    from r3m_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    root = write_synthetic_dataset(os.path.join(tmp, "ego4d"), n_videos=EGO4D_VIDEOS,
+                                   size=224, seed=SEED, captions=[f"C {s}" for s in sentences()])
+    write_s = time.perf_counter() - t0
+    bert_path, vocab_path = write_language(tmp, bert)
+    work = os.path.join(tmp, "ego4d_run")
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cfgs", "config_rep.yaml")
+
+    def workspace(steps: int):
+        cfg = load_config(config, overrides=[
+            f"datapath={root}", f"log_dir={work}", "agent.size=50", "agent.langweight=1.0",
+            "doaug=rctraj", "compute_dtype=bfloat16", f"batch_size={TRAIN_CLIPS}",
+            f"num_workers={os.cpu_count()}", f"eval_freq={EGO4D_EVAL_FREQ}",
+            f"train_steps={steps}", f"bert_weights={bert_path}", f"vocab_path={vocab_path}",
+            f"lang_max_len={LANG_LEN}", "n_devices=1"])
+        t = time.perf_counter()
+        ws = Workspace(cfg)
+        start_s = time.perf_counter() - t
+        windows = []  # (steps, wall seconds with the metrics' read-back, input wait seconds,
+        #               seconds queueing the steps)
+        flush = ws._flush_train_metrics
+
+        def timed_flush(pending, win_t0=None):
+            flush(pending, win_t0)
+            if pending and win_t0:
+                windows.append(([p[0] for p in pending], time.time() - win_t0,
+                                sum(p[2] for p in pending), sum(p[3] for p in pending)))
+
+        ws._flush_train_metrics = timed_flush
+        return ws, start_s, windows
+
+    reset_counts()
+    ws, start_a, windows_a = workspace(EGO4D_STEPS_A)
+    try:
+        ws.train()
+        t = time.perf_counter()
+        ws.save_snapshot()
+        ws.flush_snapshots()
+        snapshot_s = time.perf_counter() - t
+    finally:
+        ws.close()
+    ws, start_b, windows_b = workspace(EGO4D_STEPS_A + EGO4D_STEPS_B)
+    try:
+        resumed = (ws.global_step, ws._train_stream_pos0)
+        ws.train()
+    finally:
+        ws.close()
+    launches = read_counts()
+    evals = ws._val_batches  # A's, restored from its snapshot, and B's
+    steps = EGO4D_STEPS_A + EGO4D_STEPS_B
+
+    if resumed != (EGO4D_STEPS_A, EGO4D_STEPS_A):
+        raise AssertionError(f"ego4d: resumed at (step, stream) {resumed}, expected "
+                             f"{(EGO4D_STEPS_A, EGO4D_STEPS_A)}")
+    if ws.global_step != steps:
+        raise AssertionError(f"ego4d: step {ws.global_step} after phase B, expected {steps}")
+    want = {"K1": steps + evals, "K2": steps, "K3": 0, "K4": 0}
+    if launches != want:
+        raise AssertionError(f"ego4d: launches {launches}, expected {want}")
+
+    def rows(name):
+        with open(os.path.join(work, name)) as f:
+            return list(csv.DictReader(f))
+
+    train_rows, eval_rows = rows("train.csv"), rows("eval.csv")
+    train_steps = [int(float(r["step"])) for r in train_rows]
+    eval_steps = [int(float(r["step"])) for r in eval_rows]
+    losses = [float(r["full_loss"]) for r in train_rows + eval_rows]
+    if not (train_steps == [10, 20, 25, 30, 35] and eval_steps == [1, 11, 21, 31]
+            and np.isfinite(losses).all()):
+        raise AssertionError(f"ego4d: train.csv steps {train_steps}, eval.csv steps "
+                             f"{eval_steps}, losses {losses}")
+
+    steady = [w for w in windows_a if min(w[0]) > EGO4D_WARMUP] + [
+        w for w in windows_b if min(w[0]) > EGO4D_STEPS_A + EGO4D_WARMUP]
+    n_steady = sum(len(w[0]) for w in steady)
+    wall = sum(w[1] for w in steady)
+    decoder, why = decoder_status()
+    result = {
+        "card": card(), "launches": launches, "decoder": decoder, "decoder_fallback_reason": why,
+        "host_cores": os.cpu_count(), "host_cores_usable": len(os.sched_getaffinity(0)),
+        "steps": steps, "steady_steps": n_steady, "clips": TRAIN_CLIPS,
+        "delivered_train_frames_per_s": n_steady * TRAIN_CLIPS * FRAMES / wall,
+        "input_wait_share": sum(w[2] for w in steady) / wall,
+        # the host queueing the steps (eager launches); the rest of the wall time is the
+        # wait for the card at each metrics read-back
+        "queue_share": sum(w[3] for w in steady) / wall,
+        "ms_per_step": wall / n_steady * 1e3,
+        "device_only_train_frames_per_s": device_only["train_frames_per_s"],
+        "write_dataset_s": write_s, "workspace_start_s": start_a,
+        "workspace_resume_s": start_b, "snapshot_s": snapshot_s,
+        "final_train_loss": float(train_rows[-1]["full_loss"]),
+        "eval_losses": [float(r["full_loss"]) for r in eval_rows],
+    }
+    log(f"ego4d_train_resnet50: decoder {decoder}" + (f" ({why})" if why else "")
+        + f"; host cores {result['host_cores']}")
+    log(f"ego4d_train_resnet50: {json.dumps(result)}")
+    result["decoders"] = decoder_check(root)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -991,6 +1156,8 @@ def main() -> int:
         paths["snapshot_resume_resnet50"] = snapshot_resume("resnet50", kept, gen)
         paths["reward_resnet50"] = reward_resnet50(kept, bert, tmp)
         del kept
+        torch.cuda.empty_cache()
+        paths["ego4d_train_resnet50"] = ego4d_train(bert, tmp, paths["train_resnet50"])
         paths["train_vit_b32"] = train("vit_b32", 0, bert, gen)
         paths["train_vit_b32_384"] = train("vit_b32_384", 0, bert, gen,
                                            timed_steps=TIMED_STEPS_384,

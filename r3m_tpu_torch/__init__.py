@@ -8,7 +8,9 @@ in [0, 255] to embeddings. Reference ``model.pt`` files load natively, and so do
 `r3m_tpu_torch.training.trainer.make_train_step` is the R3M pretraining step, whose state
 `r3m_tpu_torch.checkpoint` saves and resumes in the JAX package's format. It scores the
 language-conditioned reward of a trained model (`R3MRewardModel`, with the WordPiece
-tokenizer and the frozen DistilBERT), and has the CLIs ``python -m
+tokenizer and the frozen DistilBERT); `Workspace` (``python -m
+r3m_tpu_torch.train_representation``) trains on Ego4D-layout data end to end, with
+evaluation, snapshots and resume; and it has the CLIs ``python -m
 r3m_tpu_torch.{embed,convert,prepare_language,verify_parity}``. The ResNet
 stem pool and the ViT attention, forward and backward, run hand-written CUDA kernels
 (``r3m_tpu_torch/csrc``), built at first use.
@@ -40,6 +42,7 @@ __all__ = [
     "R3MEncoder",
     "R3MRewardModel",
     "VALID_ARGS",
+    "Workspace",
     "cleanup_config",
     "load_r3m",
     "load_r3m_from_files",
@@ -53,11 +56,16 @@ __all__ = [
 
 
 def __getattr__(name: str):
-    """`R3MRewardModel` is imported on first use, as in the JAX package."""
+    """`R3MRewardModel` and `Workspace` are imported on first use, as in the JAX
+    package."""
     if name == "R3MRewardModel":
         from r3m_tpu_torch.reward import R3MRewardModel
 
         return R3MRewardModel
+    if name == "Workspace":
+        from r3m_tpu_torch.training.workspace import Workspace
+
+        return Workspace
     raise AttributeError(f"module 'r3m_tpu_torch' has no attribute {name!r}")
 
 

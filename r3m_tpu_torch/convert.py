@@ -237,8 +237,9 @@ def canonical_path(name: str) -> Optional[Tuple[str, Tuple, str]]:
 
 
 def to_canonical(x: torch.Tensor, layout: str) -> np.ndarray:
-    """A port tensor as the JAX package holds it (f32 numpy)."""
-    a = x.detach().float().cpu().numpy()
+    """A port tensor as the JAX package holds it: an f32 numpy copy, which later in-place
+    updates of `x` (a train step on the CPU) do not reach."""
+    a = x.detach().to("cpu", torch.float32, copy=True).numpy()
     if layout == "conv":
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
     return np.ascontiguousarray(a.T) if layout == "linear" else a

@@ -1,20 +1,97 @@
-"""Reading a reference checkpoint's training config (the part serving needs).
+"""The training config: YAML, Hydra-style overrides and ``${...}`` interpolation.
 
-The port's copy of ``_resolve`` and ``agent_to_r3m_config`` from
-``r3m_tpu/utils/config.py``: OmegaConf-style ``${key}`` / ``${now:fmt}`` interpolation
-against the root config, and the mapping of an ``agent`` node onto `R3MConfig`.
+The port's copy of ``r3m_tpu/utils/config.py``: `load_config` reads a root YAML (the
+repo's ``cfgs/config_rep.yaml``), applies strict ``key.path=value`` overrides (an unknown
+key raises, ``+key=value`` adds one), then resolves OmegaConf-style ``${key}`` /
+``${now:fmt}`` interpolation against the root; `agent_to_r3m_config` maps the ``agent``
+node onto `R3MConfig`. The node's ``_target_`` names the JAX package's class; the port
+reads it as data and imports nothing it names.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import re
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 _INTERP = re.compile(r"^\$\{([a-zA-Z0-9_.]+)\}$")
 _INTERP_EMBEDDED = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
 _NOW = re.compile(r"\$\{now:([^}]+)\}")
 _MISSING = object()  # sentinel: distinguish absent keys from null values
+
+
+class Config(dict):
+    """A dict with attribute access and nested dot-path get/set."""
+
+    def __getattr__(self, k):
+        try:
+            v = self[k]
+        except KeyError as e:
+            raise AttributeError(k) from e
+        if isinstance(v, dict) and not isinstance(v, Config):
+            # cache the converted child, so that attribute writes to nested nodes
+            # (cfg.agent.langweight = 1.0) change this config, not a throwaway copy
+            v = Config(v)
+            self[k] = v
+        return v
+
+    def __setattr__(self, k, v):
+        self[k] = v
+
+    def get_path(self, path: str, default=None):
+        node = _get_path(self, path)
+        return default if node is _MISSING else node
+
+    def set_path(self, path: str, value) -> None:
+        parts = path.split(".")
+        node: Dict = self
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def has_path(self, path: str) -> bool:
+        return _get_path(self, path) is not _MISSING
+
+
+def _parse_value(text: str) -> Any:
+    """A YAML-typed scalar ('1e-4' stays a string as YAML 1.1 has it, 'true' -> bool)."""
+    import yaml
+
+    try:
+        return yaml.safe_load(text)
+    except yaml.YAMLError:
+        return text
+
+
+def load_config(
+    path: Optional[str] = None,
+    overrides: Optional[List[str]] = None,
+    base: Optional[Dict] = None,
+) -> Config:
+    """Load YAML over `base`, apply ``key.path=value`` overrides, resolve ``${...}``.
+
+    Overrides are strict for a config read from a file or a base: a key that is not
+    there raises `KeyError` (a typo such as ``batch_sise=4``); ``+key=value`` adds one.
+    """
+    import yaml
+
+    cfg: Dict = copy.deepcopy(base) if base else {}
+    if path is not None:
+        with open(path) as f:
+            cfg.update(yaml.safe_load(f) or {})
+    c = Config(cfg)
+    for ov in overrides or []:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value: {ov!r}")
+        key, val = ov.split("=", 1)
+        key = key.strip()
+        if key.startswith("+"):
+            key = key[1:]
+        elif (path is not None or base) and not c.has_path(key):
+            raise KeyError(f"unknown config key {key!r} (use +{key}=... to add a new key)")
+        c.set_path(key, _parse_value(val))
+    return Config(_resolve(dict(c), dict(c)))
 
 
 def _get_path(root: Dict, path: str):

@@ -7,6 +7,7 @@ them each test skips. This file imports no JAX, so it runs on a machine without 
 """
 
 import copy
+import os
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ from r3m_tpu_torch.ops.pool import (
     maxpool_3x3s2_reference,
 )
 from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
+from r3m_tpu_torch.training.workspace import Workspace
 
 pytestmark = pytest.mark.cuda
 
@@ -531,6 +533,96 @@ def _small_f32_step_inputs():
     crops = torch.tensor([[0, 0, 40, 48], [3, 5, 30, 33], [10, 2, 21, 25], [1, 9, 38, 39]],
                          dtype=torch.float32)
     return cfg, bert, model, batch, perms, crops
+
+
+class _Placer:
+    """The workspace's device placement (pinned side-stream copies) on the current card."""
+
+    _place = Workspace._place
+    _ready = Workspace._ready
+    _device_prefetch = Workspace._device_prefetch
+
+    def __init__(self):
+        self.device = torch.device("cuda", torch.cuda.current_device())
+        self._copy_stream = torch.cuda.Stream(self.device)
+
+
+def _host_batch(rng):
+    return {"images": rng.integers(0, 256, (4, 5, 64, 64, 3), dtype=np.uint8),
+            "token_ids": rng.integers(0, 30, (4, 8)).astype(np.int32),
+            "attn_mask": np.ones((4, 8), np.int32),
+            "lang_mask": np.array([1, 0, 1, 1], np.float32), "captions": ["a", "", "b", "c"]}
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_prefetch_places_what_a_plain_copy_places(gen, depth):
+    """Batches pinned and copied on the side stream by the producer thread (depth 2) or
+    in the caller's (depth 0) equal a plain ``.to()`` of the same arrays, dtype for dtype;
+    the captions stay on the host."""
+    rng = np.random.default_rng(0)
+    batches = [_host_batch(rng) for _ in range(5)]
+    p = _Placer()
+    got = [p._ready(item) for item in p._device_prefetch(iter(batches), depth=depth)]
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for g, b in zip(got, batches):
+        assert set(g) == set(b) - {"captions"}
+        for k, t in g.items():
+            want = torch.from_numpy(b[k]).to("cuda")
+            assert t.device.type == "cuda" and t.dtype == want.dtype, k
+            assert torch.equal(t, want), k
+
+
+@pytest.mark.parametrize("clips,hw", [(4, 64), (64, 224)])
+def test_a_placed_batch_outlives_the_step_that_reads_it(gen, clips, hw):
+    """A batch freed while a queued step still reads it is not handed to the next copy:
+    the step's stream spins, then sums batch A; A's last reference is dropped and batch B
+    (the same size, another value) is placed on the side stream at once. Without
+    `record_stream` the allocator gives B A's memory and B's copy lands there before the
+    sum reads it (small and training-size batches)."""
+    shape = (clips, 5, hw, hw, 3)
+    p = _Placer()
+    a = p._ready(p._place({"images": np.full(shape, 1, np.uint8)}))["images"]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s on the step's stream
+    total = a.to(torch.int64).sum()
+    del a
+    b = p._ready(p._place({"images": np.full(shape, 2, np.uint8)}))["images"]
+    torch.cuda.synchronize()
+    assert total.item() == int(np.prod(shape))
+    assert torch.equal(b, torch.full_like(b, 2))
+
+
+def test_workspace_trains_and_resumes_on_the_card(gen, tmp_path):
+    """The workspace on the card at a small size (ResNet-18 at 64 px crops, bf16, 2 clips):
+    K1 and K2 once a step (K1 also once an eval batch), then a resume with the data
+    stream fast-forwarded."""
+    from r3m_tpu_torch.data.ego4d import write_synthetic_dataset
+    from r3m_tpu_torch.utils.config import load_config
+
+    data = write_synthetic_dataset(str(tmp_path / "data"), n_videos=4, min_len=10,
+                                   max_len=16, size=64)
+    config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "cfgs", "config_rep.yaml")
+
+    def run(steps):
+        cfg = load_config(config, overrides=[
+            f"datapath={data}", f"log_dir={tmp_path / 'run'}", "batch_size=2",
+            f"train_steps={steps}", "eval_freq=2", "num_workers=2", "agent.size=18",
+            "compute_dtype=bfloat16", "+agent.image_size=64", "n_devices=1"])
+        ws = Workspace(cfg)
+        try:
+            ws.train()
+        finally:
+            ws.close()
+        return ws
+
+    for c in (maxpool_3x3s2_fwd, maxpool_3x3s2_bwd):
+        c.launches = 0
+    ws = run(3)
+    assert ws.device.type == "cuda" and ws.global_step == 3
+    assert (maxpool_3x3s2_fwd.launches, maxpool_3x3s2_bwd.launches) == (3 + 2, 3)
+    ws = run(5)
+    assert ws._train_stream_pos0 == 3 and ws.global_step == 5
 
 
 def _one_step(device, cfg, bert, model, batch, perms, crops):
