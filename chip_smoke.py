@@ -29,7 +29,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    tail of 2), parity and fast: frames/s of the whole CLI, the paths in order, K1 once a
    batch, parity against `R3MEncoder` on the same decoded arrays (cosine > 0.9999);
 5. ViT-B/32 serving, the same, with K3's launches; then ViT-B/32 at 384 px (T = 145),
-   one request of 64 frames;
+   one request of 64 frames; then mesh serving: ``load_r3m_from_files(...,
+   mesh=make_mesh(1))`` of ResNet-50 and ViT-B/32, parity and fast, a request of 256
+   frames, bit-equal to the same encoder without a mesh (K1, K3 counted), and the embed
+   CLI with ``--n-devices 1``, bit-equal to its output in 4;
 6. the ResNet-50 pretraining step, bf16, 64 clips of 5 frames at 224 px on the device,
    rctraj, language + TCN + L1/L2 losses, 3 negatives, Adam 1e-4, a frozen DistilBERT of
    base geometry: warm-up steps, then timed steps on one repeated batch, each drawing
@@ -73,12 +76,26 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    eval batch); the loss is finite and both CSV files hold their rows. Then the native
    decoder against PIL on 300 of the dataset's frames, where the native library built
    (mean abs difference at most 1 grey level);
-12. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card and on the CPU from
+12. the data-parallel steps, in spawned children that own their process group:
+   ``dp_train_resnet50``, one rank over NCCL, the bf16 step of 6 through the
+   data-parallel code (BatchNorm statistics all-reduced, embeddings gathered, gradients
+   averaged) timed in turns with the plain step (plain, dp, dp, plain; 2 warm-up and 10
+   timed steps each): both frames/s, their ratio, peak memory, the collectives a step by
+   kind (calls, bytes), K1/K2 once a step; then 3 steps from one state with fixed draws
+   through both, the losses within `DP_BF16_LOSS_RTOL`. ``dp_train_gloo2``, two gloo
+   ranks on the one card, each with its half of one global batch (`local_rows`), f32
+   ResNet-18 at 64 px (64 clips; K1, K2) and ViT-B/32 at 224 px (16 clips; K3, K4): the
+   ranks' losses bit-equal, and rank 0 held to the plain step on the whole batch (see
+   `dp_gloo2_child`). ``ego4d_train_dp``: `Workspace` with ``distributed_init=true`` joins
+   a world of one over NCCL by itself and trains 10 steps of 16 clips on the dataset of
+   11, one eval, one snapshot, the ``[distributed]`` line printed (it runs first in the
+   child of ``dp_train_resnet50``, which then uses its process group);
+13. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card and on the CPU from
    the same state, batch, permutations and crops: loss and gradients agree;
-13. one JSON line with every kernel's numbers, then the result line.
+14. one JSON line with every kernel's numbers, then the result line.
 
-Each path's launch counts are set to 0 just before it runs and read just after; the
-kernel checks of phase 3 are not counted. Uses no JAX: the port is checked against its
+Each path's launch counts are set to 0 just before it runs and read just after (in the
+children, by the children); the kernel checks of phase 3 are not counted. Uses no JAX: the port is checked against its
 own plain versions and its CPU path.
 """
 
@@ -167,6 +184,20 @@ EGO4D_EVAL_FREQ = 10
 EGO4D_WARMUP = 2
 DECODE_CHECK_FRAMES = 300
 DECODE_MEAN_ATOL = 1.0
+# The data-parallel phases run in spawned children (the process group lives and dies with
+# them), each given this many seconds. dp_train_resnet50 holds its losses over
+# DP_SAME_STEPS steps with fixed draws to DP_BF16_LOSS_RTOL of the plain step's: the two
+# BatchNorms round the bf16 step's statistics differently (cuDNN's against sums of x and
+# x^2 in f32), which moves some bf16 activations by one rounding step. At lr DP_SAME_LR,
+# as the CPU tests run: at 1e-4 Adam moves every element by ~lr whatever its gradient's
+# size, so an element whose gradient is rounding noise moves either way, and the two
+# runs part after a step (3e-2 apart by the third on the CPU at 4 clips).
+CHILD_TIMEOUT_S = 400
+DP_SAME_STEPS = 3
+DP_SAME_LR = 1e-6
+DP_BF16_LOSS_RTOL = 2e-2
+EGO4D_DP_STEPS = 10
+EGO4D_DP_CLIPS = 16
 
 
 def log(msg: str) -> None:
@@ -1095,6 +1126,354 @@ def ego4d_train(bert, tmp: str, device_only: dict) -> dict:
     return result
 
 
+def run_child(fn, *args, world_size: int = 1, launcher: bool = True) -> dict:
+    """Run ``fn(out_path, *args)`` in `world_size` spawned ranks (`launch_local`, which
+    exports a launcher's environment), or with ``launcher=False`` in one spawned process
+    with none; returns what rank 0 wrote to ``out_path`` as JSON, the other ranks' under
+    ``"ranks"``. The process group lives and dies with the children."""
+    from r3m_tpu_torch.parallel.mesh import launch_local
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank%d.json")
+        if launcher:
+            launch_local(fn, world_size, out, *args, timeout=CHILD_TIMEOUT_S)
+        else:
+            proc = torch.multiprocessing.get_context("spawn").Process(
+                target=fn, args=(out, *args))
+            proc.start()
+            proc.join(CHILD_TIMEOUT_S)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            if proc.exitcode != 0:
+                raise AssertionError(f"{fn.__name__}: the child exited with {proc.exitcode}")
+        results = []
+        for r in range(world_size):
+            with open(out % r) as f:
+                results.append(json.load(f))
+    result = results[0]
+    if world_size > 1:
+        result["ranks"] = results[1:]
+    return result
+
+
+def profile_steps(step, state, batch, n: int = 2) -> dict:
+    """`n` steps under torch.profiler after one unprofiled: device ms a step (the sum of
+    the card's kernel times), kernels launched a step, wall ms a step (profiled), and the
+    heaviest kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return {"device_ms_per_step": sum(e.self_device_time_total for e in kernels) / 1e3 / n,
+            "kernels_per_step": sum(e.count for e in kernels) / n,
+            "wall_ms_per_step": wall / n * 1e3,
+            "top_kernels": [[e.key[:60], e.self_device_time_total / 1e3 / n, e.count / n]
+                            for e in kernels[:8]]}
+
+
+def dp_rank() -> tuple:
+    import torch.distributed as dist
+
+    return dist.get_rank(), dist.get_world_size(), dist.get_backend()
+
+
+def dp_train() -> dict:
+    """``dp_train_resnet50``, in a rank of a world of 1 over NCCL: the bf16 ResNet-50 step
+    of phase 6 through the data-parallel code (synced BatchNorm, gathered embeddings,
+    averaged gradients) against the plain step, timed in turns (plain, dp, dp, plain; one
+    state a path, both resident); then 2 profiled steps of each (device ms, kernels a
+    step, the heaviest kernels); then 3 steps from one state with the draws held fixed
+    through both (at lr `DP_SAME_LR`)."""
+    from r3m_tpu_torch.data.augment import sample_crop_params
+    from r3m_tpu_torch.losses import draw_permutations
+    from r3m_tpu_torch.models.distilbert import DistilBert
+    from r3m_tpu_torch.models.r3m import R3MConfig
+    from r3m_tpu_torch.parallel.collectives import read_tally, reset_tally
+    from r3m_tpu_torch.parallel.mesh import init_distributed
+    from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    init_distributed("true")
+    if dp_rank() != (0, 1, "nccl"):
+        raise AssertionError(f"dp_train_resnet50: rank, world, backend {dp_rank()}")
+    torch.manual_seed(SEED)
+    bert = DistilBert().to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cfg = R3MConfig(size=50, langweight=1.0, tcnweight=1.0, l1weight=1e-5, num_negatives=3,
+                    lr=1e-4, compute_dtype="bfloat16", image_size=224)
+    batch = train_batch(gen, TRAIN_CLIPS, 224, bert.cfg.vocab_size, LANG_LEN)
+    steps = {"plain": make_train_step(cfg, bert, doaug="rctraj"),
+             "dp": make_train_step(cfg, bert, doaug="rctraj", mesh=True)}
+    fps = {"plain": [], "dp": []}
+    memory = {}
+    states = {path: create_train_state(cfg, SEED) for path in steps}
+    n = WARMUP_STEPS + TIMED_STEPS
+    for i, path in enumerate(("plain", "dp", "dp", "plain")):
+        state = states[path]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if i == 1:
+            reset_counts()
+            reset_tally()
+        for j in range(n):
+            if j == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, metrics = steps[path](state, batch)
+        loss = float(metrics["full_loss"])  # waits for the steps
+        fps[path].append(TIMED_STEPS * TRAIN_BATCH / (time.perf_counter() - t0))
+        memory[path] = torch.cuda.max_memory_allocated() / 1e9
+        if not np.isfinite(loss):
+            raise AssertionError(f"dp_train_resnet50 {path}: loss {loss}")
+        if i == 2:
+            launches, tally = read_counts(), read_tally()
+        states[path] = state
+    if launches != {"K1": 2 * n, "K2": 2 * n, "K3": 0, "K4": 0}:
+        raise AssertionError(f"dp_train_resnet50: launches {launches} in {2 * n} steps")
+
+    profiles = {path: profile_steps(step, states[path], batch) for path, step in steps.items()}
+    del states, state
+    torch.cuda.empty_cache()
+    perms = draw_permutations(gen, TRAIN_CLIPS, cfg.num_negatives)
+    crops = sample_crop_params(gen, TRAIN_CLIPS, 224, 224)
+    slow = dataclasses.replace(cfg, lr=DP_SAME_LR)
+    losses = {}
+    for path, mesh in (("plain", None), ("dp", True)):
+        state = create_train_state(slow, SEED)
+        step = make_train_step(slow, bert, doaug="rctraj", mesh=mesh)
+        losses[path] = [float(step(state, batch, perms=perms, crops=crops)[1]["full_loss"])
+                        for _ in range(DP_SAME_STEPS)]
+        del state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["dp"], losses["plain"]))
+    plain, dp = np.mean(fps["plain"]), np.mean(fps["dp"])
+    result = {
+        "card": card(), "launches": launches, "steps": 2 * n, "clips": TRAIN_CLIPS,
+        "plain_train_frames_per_s": fps["plain"], "dp_train_frames_per_s": fps["dp"],
+        "dp_over_plain": dp / plain,
+        "max_memory_allocated_gb": memory,
+        "collectives_per_step": {k: {"calls": v["calls"] / (2 * n),
+                                     "bytes": v["bytes"] / (2 * n)} for k, v in tally.items()},
+        "profiles": profiles,
+        "losses_fixed_draws": losses, "lr_fixed_draws": DP_SAME_LR,
+        "loss_max_rel_err": rel, "loss_rtol": DP_BF16_LOSS_RTOL,
+    }
+    log(f"dp_train_resnet50: {json.dumps(result)}")
+    if not rel <= DP_BF16_LOSS_RTOL:
+        raise AssertionError(f"dp_train_resnet50: losses {rel} apart (rtol {DP_BF16_LOSS_RTOL})")
+    return result
+
+
+def dp_gloo2_child(out: str) -> None:
+    """``dp_train_gloo2``: one of two gloo ranks on ``cuda:0``. Each f32 step (ResNet-18 at
+    64 px, 64 clips; ViT-B/32 at 224 px, 16 clips) takes this rank's half of one global
+    batch (`local_rows`); rank 0 first runs the plain step on the whole batch from the
+    same state, and holds the data-parallel step to it: the loss (rtol 1e-4), every
+    parameter after one Adam update at lr 1e-6 (relative L2 1e-3 a leaf, floored at 1e-4
+    of the global norm: a leaf whose gradient is rounding noise moves by +-lr either way),
+    the BatchNorm statistics (rtol 1e-4), the gradients' global norm (rtol 1e-2, which a
+    W-times scaling would miss by far); the worst gradient leaf is printed. A ReLU input
+    within rounding of 0 moves the leaves upstream of it by ~3e-3, so a gradient leaf is
+    not held to 1e-3."""
+    from r3m_tpu_torch.models.distilbert import DistilBert, DistilBertConfig
+    from r3m_tpu_torch.models.r3m import R3MConfig
+    from r3m_tpu_torch.parallel.mesh import init_distributed, local_rows
+    from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    init_distributed("true", backend="gloo", device="cuda:0")
+    rank, world, backend = dp_rank()
+    if (world, backend) != (2, "gloo"):
+        raise AssertionError(f"dp_train_gloo2: world {world}, backend {backend}")
+    result = {"launches": {"K1": 0, "K2": 0, "K3": 0, "K4": 0}}
+    for name, size, hw, clips in (("resnet18_64", 18, 64, 64), ("vit_b32_224", 0, 224, 16)):
+        cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
+                        num_negatives=3, lr=1e-6, compute_dtype="float32", image_size=hw)
+        torch.manual_seed(SEED)
+        bert = DistilBert(DistilBertConfig(vocab_size=100, n_layers=1, n_heads=4,
+                                           hidden_dim=128, max_position_embeddings=LANG_LEN))
+        bert = bert.to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        batch = train_batch(gen, clips, hw, 100, LANG_LEN)
+        rows = torch.as_tensor(local_rows(clips, 1, world, rank), device="cuda")
+        if rank == 0:
+            ref = create_train_state(cfg, SEED)
+            ref, ref_m = make_train_step(cfg, bert, doaug="rctraj")(ref, batch)
+        state = create_train_state(cfg, SEED)
+        step = make_train_step(cfg, bert, doaug="rctraj", mesh=True)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {k: v[rows] for k, v in batch.items()})
+        loss = float(metrics["full_loss"])
+        step_s = time.perf_counter() - t0
+        result["launches"] = {k: result["launches"][k] + v for k, v in read_counts().items()}
+        entry = {"loss_hex": loss.hex(), "loss": loss, "step_s": step_s}
+        if rank == 0:
+            sd, want = state.model.state_dict(), ref.model.state_dict()
+            grads = {n: p.grad for n, p in state.model.named_parameters()}
+            want_g = {n: p.grad for n, p in ref.model.named_parameters()}
+            floor = 1e-4 * torch.linalg.vector_norm(
+                torch.stack([w.float().norm() for w in want.values()])).item()
+            gfloor = 1e-4 * float(ref_m["grad_norm"])
+            errs = {k: ((sd[k].float() - w.float()).norm().item() / max(w.float().norm().item(),
+                                                                        floor))
+                    for k, w in want.items() if not k.endswith(("running_mean", "running_var",
+                                                                "num_batches_tracked"))}
+            stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+            stats_bad = [k for k in stats if not torch.allclose(sd[k], want[k], rtol=1e-4,
+                                                                 atol=1e-6)]
+            gerrs = {k: (grads[k] - w).norm().item() / max(w.norm().item(), gfloor)
+                     for k, w in want_g.items()}
+            worst, gworst = max(errs, key=errs.get), max(gerrs, key=gerrs.get)
+            entry.update(
+                reference_loss=float(ref_m["full_loss"]),
+                loss_rel_err=abs(loss - float(ref_m["full_loss"])) / abs(float(ref_m["full_loss"])),
+                worst_param=worst, worst_param_rel_l2=errs[worst], bn_statistics=len(stats),
+                bn_statistics_off=stats_bad, grad_norm=float(metrics["grad_norm"]),
+                reference_grad_norm=float(ref_m["grad_norm"]), worst_grad_leaf=gworst,
+                worst_grad_rel_l2=gerrs[gworst])
+            entry["grad_norm_rel_err"] = (abs(entry["grad_norm"] - entry["reference_grad_norm"])
+                                          / entry["reference_grad_norm"])
+            log(f"dp_train_gloo2 {name}: {json.dumps(entry)}")
+            if not (entry["loss_rel_err"] <= 1e-4 and errs[worst] <= 1e-3 and not stats_bad
+                    and entry["grad_norm_rel_err"] <= 1e-2):
+                raise AssertionError(f"dp_train_gloo2 {name}: the world-2 step differs from "
+                                     f"the world-1 step: {entry}")
+            del ref
+        result[name] = entry
+        del state, step, bert
+        torch.cuda.empty_cache()
+    with open(out % rank, "w") as f:
+        json.dump(result, f)
+
+
+def ego4d_dp(root: str, bert_path: str, vocab_path: str, work: str) -> dict:
+    """``ego4d_train_dp``: `Workspace` with ``distributed_init=true`` in a process no
+    launcher started, so it joins a world of 1 over NCCL itself, on the dataset of
+    phase 11 for `EGO4D_DP_STEPS` steps of `EGO4D_DP_CLIPS` clips with one eval and one
+    snapshot."""
+    import contextlib
+    import io
+
+    from r3m_tpu_torch.training.workspace import Workspace
+    from r3m_tpu_torch.utils.config import load_config
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cfgs", "config_rep.yaml")
+    cfg = load_config(config, overrides=[
+        f"datapath={root}", f"log_dir={work}", "agent.size=50", "agent.langweight=1.0",
+        "doaug=rctraj", "compute_dtype=bfloat16", f"batch_size={EGO4D_DP_CLIPS}",
+        f"num_workers={os.cpu_count()}", f"eval_freq={EGO4D_DP_STEPS}",
+        f"train_steps={EGO4D_DP_STEPS}", f"bert_weights={bert_path}",
+        f"vocab_path={vocab_path}", f"lang_max_len={LANG_LEN}", "n_devices=1",
+        "distributed_init=true"])
+    reset_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        ws = Workspace(cfg)
+    start_s = time.perf_counter() - t0
+    log(printed.getvalue().rstrip())
+    try:
+        t0 = time.perf_counter()
+        ws.train()
+        train_s = time.perf_counter() - t0
+    finally:
+        ws.close()
+    launches = read_counts()
+    snapshots = sorted(f for f in os.listdir(work) if re.fullmatch(r"snapshot_\d+\.npz", f))
+    with open(os.path.join(work, "train.csv")) as f:
+        rows = list(csv.DictReader(f))
+    result = {"card": card(), "launches": launches, "rank_world_backend": list(dp_rank()),
+              "steps": ws.global_step, "workspace_start_s": start_s, "train_s": train_s,
+              "snapshots": snapshots, "train_csv_rows": len(rows),
+              "final_train_loss": float(rows[-1]["full_loss"])}
+    log(f"ego4d_train_dp: {json.dumps(result)}")
+    line = "[distributed] rank 0/1 (nccl, cuda:0"
+    want = {"K1": EGO4D_DP_STEPS + 1, "K2": EGO4D_DP_STEPS, "K3": 0, "K4": 0}
+    if not (line in printed.getvalue() and ws.global_step == EGO4D_DP_STEPS
+            and snapshots == ["snapshot_1.npz"] and rows and launches == want
+            and np.isfinite(result["final_train_loss"])):
+        raise AssertionError(f"ego4d_train_dp: {result}; expected launches {want}, one "
+                             f"snapshot, the line {line!r}")
+    return result
+
+
+def dp_world1_child(out: str, root: str, bert_path: str, vocab_path: str, work: str) -> None:
+    """The world-1 data-parallel phases in one process that no launcher started (one CUDA
+    context and one NCCL communicator for both): ``ego4d_train_dp`` first, whose
+    `Workspace` joins the world itself, then ``dp_train_resnet50`` in it."""
+    result = {"ego4d_train_dp": ego4d_dp(root, bert_path, vocab_path, work),
+              "dp_train_resnet50": dp_train()}
+    with open(out % 0, "w") as f:
+        json.dump(result, f)
+
+
+def mesh_serving(tmp: str) -> dict:
+    """``load_r3m_from_files(..., mesh=make_mesh(1))`` against the same encoder without a
+    mesh, ResNet-50 and ViT-B/32, parity and fast, a request of 256 frames: bit-equal,
+    K1 and K3 counted over the mesh's requests; then the embed CLI with ``--n-devices 1``
+    against phase 4's output, bit-equal."""
+    import r3m_tpu_torch
+    from r3m_tpu_torch import embed
+    from r3m_tpu_torch.parallel.mesh import make_mesh
+
+    frames = np.random.default_rng(SEED + 1).integers(0, 256, (SERVE_BATCH, 3, 224, 224),
+                                                      dtype=np.uint8)
+    launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    result = {}
+    for name in ("resnet50", "vit_b32"):
+        path = os.path.join(tmp, f"{name}.pt")
+        for precision in ("parity", "fast"):
+            want = r3m_tpu_torch.load_r3m_from_files(path, precision=precision)(frames)
+            enc = r3m_tpu_torch.load_r3m_from_files(path, precision=precision,
+                                                    mesh=make_mesh(1))
+            reset_counts()
+            got = enc(frames)
+            torch.cuda.synchronize()
+            launches = {k: launches[k] + v for k, v in read_counts().items()}
+            result[f"{name}_{precision}_bit_equal"] = bool(torch.equal(got, want))
+            del enc
+    reset_counts()
+    mesh_out = os.path.join(tmp, "embeddings_mesh.npz")
+    embed.main([os.path.join(tmp, "frames"), "--model-file", os.path.join(tmp, "resnet50.pt"),
+                "--out", mesh_out, "--batch", str(EMBED_BATCH), "--n-devices", "1"])
+    launches = {k: launches[k] + v for k, v in read_counts().items()}
+    with np.load(mesh_out) as a, np.load(os.path.join(tmp, "embeddings_parity.npz")) as b:
+        result["embed_n_devices_1_bit_equal"] = bool(np.array_equal(a["embeddings"],
+                                                                    b["embeddings"]))
+    result["launches"] = launches
+    log(f"mesh serving: {json.dumps(result)}")
+    if not all(v for k, v in result.items() if k.endswith("bit_equal")):
+        raise AssertionError(f"mesh serving differs from serving without a mesh: {result}")
+    if not (launches["K1"] and launches["K3"]):
+        raise AssertionError(f"mesh serving: launches {launches}")
+    return result
+
+
+class PhaseClock:
+    """The seconds each phase of `main` took, logged as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        log(f"[phase {name}: {now - self.t:.1f} s]")
+        self.t = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1121,9 +1500,11 @@ def main() -> int:
         if not report or spills(report):
             raise AssertionError(f"{what}: ptxas reports {spills(report)}")
 
+    clock = PhaseClock()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_rows, k2_rows = check_pool(gen)
     k3_rows, k4_rows = check_attention(gen)
+    clock("kernel checks")
 
     torch.manual_seed(SEED)
     resnet = ResNet(50)
@@ -1137,42 +1518,69 @@ def main() -> int:
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve_resnet50"] = serve("resnet50", resnet, 2048, "K1", 0.9999, tmp)
+        clock("serve_resnet50")
         del resnet
         paths["embed_resnet50"] = embed_phase(os.path.join(tmp, "resnet50.pt"), tmp)
+        clock("embed_resnet50")
         # ViT-B/32 in bf16 carries its residual stream in bf16 through 12 layers, as the
         # JAX package's fast path does; with these N(0, 0.02) weights both packages'
         # fast paths land at cosine ~0.9999 against parity on the CPU, so the bound is
         # looser than the ResNet's.
         paths["serve_vit_b32"] = serve("vit_b32", ViT(), 768, "K3", 0.9995, tmp)
+        clock("serve_vit_b32")
         # ViT-B/32 at 384 px: T = 145, K3 in key tiles
         paths["serve_vit_b32_384"] = serve(
             "vit_b32_384", ViT(dataclasses.replace(B32, image_size=384)), 768, "K3", 0.9995,
             tmp, batch=SERVE_384_BATCH, requests=1, hw=384)
+        clock("serve_vit_b32_384")
+        paths["mesh_serving"] = mesh_serving(tmp)
+        clock("mesh_serving")
 
     torch.manual_seed(SEED)
     bert = DistilBert().to("cuda")  # distilbert-base geometry, seeded random weights
     with tempfile.TemporaryDirectory() as tmp:
         paths["train_resnet50"], kept = train("resnet50", 50, bert, gen, keep=True)
+        clock("train_resnet50")
         paths["snapshot_resume_resnet50"] = snapshot_resume("resnet50", kept, gen)
         paths["reward_resnet50"] = reward_resnet50(kept, bert, tmp)
+        clock("snapshot_resume and reward_resnet50")
         del kept
         torch.cuda.empty_cache()
         paths["ego4d_train_resnet50"] = ego4d_train(bert, tmp, paths["train_resnet50"])
+        clock("ego4d_train_resnet50")
+        paths["dp_train_gloo2"] = run_child(dp_gloo2_child, world_size=2)
+        paths["dp_train_gloo2"]["launches"] = {
+            k: v + paths["dp_train_gloo2"]["ranks"][0]["launches"][k]
+            for k, v in paths["dp_train_gloo2"]["launches"].items()}
+        losses = [r["resnet18_64"]["loss_hex"] + r["vit_b32_224"]["loss_hex"]
+                  for r in [paths["dp_train_gloo2"], *paths["dp_train_gloo2"]["ranks"]]]
+        if len(set(losses)) != 1:
+            raise AssertionError(f"dp_train_gloo2: the ranks' losses differ: {losses}")
+        clock("dp_train_gloo2")
+        bert_path, vocab_path = write_language(tmp, bert)
+        paths.update(run_child(dp_world1_child, os.path.join(tmp, "ego4d"), bert_path,
+                               vocab_path, os.path.join(tmp, "ego4d_dp_run"), launcher=False))
+        clock("ego4d_train_dp and dp_train_resnet50")
         paths["train_vit_b32"] = train("vit_b32", 0, bert, gen)
+        clock("train_vit_b32")
         paths["train_vit_b32_384"] = train("vit_b32_384", 0, bert, gen,
                                            timed_steps=TIMED_STEPS_384,
                                            clips=TRAIN_384_CLIPS, image_size=384)
+        clock("train_vit_b32_384")
         # The f32 step sets its own precision (true f32), whatever torch's TF32 flags say.
         paths["train_vit_b32_f32"], kept = train("vit_b32_f32", 0, bert, gen, "float32",
                                                  TIMED_STEPS_F32, keep=True)
         paths["snapshot_serve_vit_b32"] = snapshot_serve("vit_b32_f32", kept)
+        clock("train_vit_b32_f32 and snapshot_serve")
         pt = reference_snapshot(os.path.join(tmp, "snapshot.pt"), kept, bert)
         del bert, kept
         torch.cuda.empty_cache()
         paths["reward_vit_b32"] = reward_vit(pt, os.path.join(tmp, "vocab.txt"))
         paths["convert_vit_b32"] = convert_round_trip(pt, tmp)
+        clock("reward_vit_b32 and convert")
     for size, image_size in ((18, 32), (0, 64)):
         cuda_against_cpu(size, image_size)
+    clock("cuda_against_cpu")
 
     def entry(key, name, source, replaces, rows):
         by_path = {p: r["launches"][key] for p, r in paths.items() if r["launches"][key]}
@@ -1193,6 +1601,7 @@ def main() -> int:
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: no path launched it")
+    log(f"phases (s): {json.dumps(clock.seconds)}")
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,12 @@ r3m_tpu_torch.{embed,convert,prepare_language,verify_parity}``. The ResNet
 stem pool and the ViT attention, forward and backward, run hand-written CUDA kernels
 (``r3m_tpu_torch/csrc``), built at first use.
 
-Every serving entry point takes ``precision=`` ("parity" or "fast"), and every entry
-point ``device=``; the device is ``"cuda"`` unless the caller names another, and with no
-card a CUDA request raises. This package imports neither `jax` nor `r3m_tpu`.
+Every serving entry point takes ``precision=`` ("parity" or "fast"), ``mesh=`` (a
+`r3m_tpu_torch.parallel.mesh.make_mesh` result: serving split over several cards), and
+every entry point ``device=``; the device is ``"cuda"`` unless the caller names another,
+and with no card a CUDA request raises. Training runs data-parallel over several cards
+with one process a card (`make_train_step(mesh=...)`, ``torchrun`` or ``n_devices=N``).
+This package imports neither `jax` nor `r3m_tpu`.
 """
 
 from __future__ import annotations
@@ -128,21 +131,24 @@ def _config_from_yaml(configpath: str) -> R3MConfig:
 
 
 def load_r3m_from_files(
-    modelpath: str, configpath: str = None, precision: str = "parity", device=None
+    modelpath: str, configpath: str = None, precision: str = "parity", device=None,
+    mesh=None,
 ) -> R3MEncoder:
     """Load from explicit artifact paths (offline hosts, local copies).
 
     `modelpath` is a reference ``model.pt``/``snapshot.pt``, or a native ``.npz``
     snapshot (`load_r3m_from_snapshot`, which takes the architecture from the snapshot);
     `configpath`, if given, its ``config.yaml`` (which needs pyyaml). The weights decide
-    the backbone and, for a ViT, the crop size, whatever the config says.
+    the backbone and, for a ViT, the crop size, whatever the config says. `mesh` serves
+    over several devices in place of `device` (`R3MEncoder`).
     """
     from r3m_tpu_torch.checkpoint import load_torch_checkpoint
     from r3m_tpu_torch.models.r3m import resolve_device
 
     if modelpath.endswith(".npz"):
-        return load_r3m_from_snapshot(modelpath, precision=precision, device=device)
-    device = resolve_device(device)  # fail before reading hundreds of MB
+        return load_r3m_from_snapshot(modelpath, precision=precision, device=device,
+                                      mesh=mesh)
+    device = resolve_device(device if mesh is None else mesh.devices[0])  # fail early
     cfg = _config_from_yaml(configpath) if configpath is not None else R3MConfig()
     bundle = load_torch_checkpoint(modelpath)
     cfg = dataclasses.replace(
@@ -151,10 +157,11 @@ def load_r3m_from_files(
         langweight=0.0,
         image_size=bundle["image_size"] or cfg.image_size,
     )
-    return R3MEncoder(cfg, bundle["convnet"], precision=precision, device=device)
+    return R3MEncoder(cfg, bundle["convnet"], precision=precision, device=device, mesh=mesh)
 
 
-def load_r3m_from_snapshot(path: str, precision: str = "parity", device=None) -> R3MEncoder:
+def load_r3m_from_snapshot(path: str, precision: str = "parity", device=None,
+                           mesh=None) -> R3MEncoder:
     """An encoder from a native training snapshot (``.npz``, written by either package).
 
     The architecture comes from the snapshot's ``config`` metadata; the encoder serves in
@@ -165,7 +172,7 @@ def load_r3m_from_snapshot(path: str, precision: str = "parity", device=None) ->
     from r3m_tpu_torch.convert import state_dict_from_jax, strip_prefix
     from r3m_tpu_torch.models.r3m import resolve_device
 
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.devices[0])
     tree, meta = load_snapshot(path)
     if not meta.get("config"):
         raise ValueError(
@@ -176,27 +183,32 @@ def load_r3m_from_snapshot(path: str, precision: str = "parity", device=None) ->
     cfg = r3m_config_from_meta(meta, langweight=0, compute_dtype="float32")
     sd = state_dict_from_jax({"convnet": tree["params"]["convnet"]},
                              tree.get("batch_stats", {}), cfg.size, data_parallel=False)
-    return R3MEncoder(cfg, strip_prefix(sd, "convnet."), precision=precision, device=device)
+    return R3MEncoder(cfg, strip_prefix(sd, "convnet."), precision=precision, device=device,
+                      mesh=mesh)
 
 
-def load_r3m(modelid: str, precision: str = "parity", device=None) -> R3MEncoder:
+def load_r3m(modelid: str, precision: str = "parity", device=None, mesh=None) -> R3MEncoder:
     """Load a pretrained R3M visual encoder ("resnet50"/"resnet34"/"resnet18").
 
     Same registry and ``$R3M_HOME`` (default ``~/.r3m``) cache layout as the reference
     (r3m/__init__.py:44-75). The returned module takes NCHW images in [0, 255] and
     returns [B, out_dim] embeddings. `precision="parity"` (default) serves f32 with TF32
-    off; `"fast"` serves the same folded weights in bfloat16.
+    off; `"fast"` serves the same folded weights in bfloat16. `mesh` serves over several
+    devices (`r3m_tpu_torch.parallel.mesh.make_mesh`).
     """
     from r3m_tpu_torch.fetch import ensure_artifacts
 
     modelpath, configpath = ensure_artifacts(modelid, reproduce=False)
-    return load_r3m_from_files(modelpath, configpath, precision=precision, device=device)
+    return load_r3m_from_files(modelpath, configpath, precision=precision, device=device,
+                               mesh=mesh)
 
 
-def load_r3m_reproduce(modelid: str, precision: str = "parity", device=None) -> R3MEncoder:
+def load_r3m_reproduce(modelid: str, precision: str = "parity", device=None,
+                       mesh=None) -> R3MEncoder:
     """Load paper-reproduction checkpoints ("r3m"/"r3m_noaug"/"r3m_nol1"/"r3m_nolang")
     — r3m/__init__.py:77-113, with its `modelif` typo fixed."""
     from r3m_tpu_torch.fetch import ensure_artifacts
 
     modelpath, configpath = ensure_artifacts(modelid, reproduce=True)
-    return load_r3m_from_files(modelpath, configpath, precision=precision, device=device)
+    return load_r3m_from_files(modelpath, configpath, precision=precision, device=device,
+                               mesh=mesh)

@@ -10,6 +10,7 @@ for BC or reward probing. Decoding needs Pillow, imported where the images are r
     python -m r3m_tpu_torch.embed --snapshot snap.npz --out emb.npz frames/
     python -m r3m_tpu_torch.embed --model resnet50 --out emb.npz a.jpg b.jpg
     python -m r3m_tpu_torch.embed --device cpu --model-file model.pt --out emb.npz frames/
+    python -m r3m_tpu_torch.embed --n-devices 4 --snapshot snap.npz --out emb.npz frames/
 """
 
 from __future__ import annotations
@@ -68,10 +69,19 @@ def _load_images(paths: Sequence[str], size: int) -> np.ndarray:
 
 
 def load_encoder(args):
-    """The encoder the CLI's arguments name, on ``args.device``."""
-    import r3m_tpu_torch
+    """The encoder the CLI's arguments name, on ``args.device``, or with ``--n-devices N``
+    over a mesh of the first N CUDA devices (N copies of the CPU with ``--device cpu``)."""
+    import torch
 
-    kw = {"precision": args.precision, "device": args.device}
+    import r3m_tpu_torch
+    from r3m_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = None
+    if args.n_devices:
+        cpu = torch.device(args.device).type == "cpu"
+        mesh = make_mesh(args.n_devices, devices=[args.device] * args.n_devices if cpu
+                         else None)
+    kw = {"precision": args.precision, "device": args.device, "mesh": mesh}
     if args.snapshot:
         return r3m_tpu_torch.load_r3m_from_snapshot(args.snapshot, **kw)
     if args.model_file:
@@ -94,20 +104,20 @@ def main(argv=None) -> str:
                    help="config.yaml next to --model-file (optional)")
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--n-devices", type=int, default=0,
-                   help="a data-parallel mesh of N cards: not ported yet (0 = one device)")
+                   help="split each batch over a data-parallel mesh of N cards "
+                   "(0 = one device)")
     p.add_argument("--precision", choices=("parity", "fast"), default="parity",
                    help="parity = f32 with TF32 off (the load_r3m law); fast = bf16 serving")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' plain versions)")
     args = p.parse_args(argv)
-    if args.n_devices:
-        raise NotImplementedError(
-            "--n-devices (serving over several cards) is not ported yet; run with one device")
 
     files = collect_image_files(args.inputs)
     enc = load_encoder(args)
-    chunks = []
     bs = max(1, args.batch)
+    if args.n_devices:  # every (padded) batch splits evenly over the mesh
+        bs = -(-bs // args.n_devices) * args.n_devices
+    chunks = []
     for i in range(0, len(files), bs):
         # streamed from disk a batch at a time; the tail is padded to the batch size, so
         # one input shape serves the whole job, and its padding's rows are dropped

@@ -13,6 +13,7 @@ embeddings out, with BatchNorm folded once for ResNets.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from typing import Any, Mapping, Optional, Tuple
 
@@ -155,6 +156,7 @@ def r3m_embed(
     *,
     train: bool = False,
     prenormalized: bool = False,
+    bn_group=None,
 ) -> torch.Tensor:
     """Images -> embeddings (reference `forward`, models_r3m.py:84-100).
 
@@ -162,7 +164,9 @@ def r3m_embed(
     the augmentation emits it). Returns ``[B, out_dim]`` f32. ``train=False`` is the port
     of ``r3m_embed(train=False)``: BatchNorm reads its running statistics, which stay as
     they are. ``train=True``: ResNet BatchNorm uses batch statistics and updates the
-    running ones in place; the ViT has no BatchNorm and runs the same forward.
+    running ones in place; the ViT has no BatchNorm and runs the same forward. With
+    `bn_group` (the data-parallel step's process group) ResNet BatchNorm takes its batch
+    statistics over every rank's rows.
     """
     if train and cfg.remat != "none":
         raise NotImplementedError(
@@ -172,7 +176,7 @@ def r3m_embed(
     x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     if cfg.size == 0:
         return convnet(x, compute_dtype=cfg.torch_compute_dtype)
-    return convnet(x.to(cfg.torch_compute_dtype), train=train)
+    return convnet(x.to(cfg.torch_compute_dtype), train=train, bn_group=bn_group)
 
 
 def safe_l2_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -239,6 +243,11 @@ class R3MEncoder(nn.Module):
     products, switched off only while the forward runs. ``"fast"`` folds in f32, runs the
     convolution/product stack in bfloat16 and returns f32.
     `device`: ``"cuda"`` unless given; ``"cpu"`` runs the kernels' plain versions.
+    `mesh`: a `r3m_tpu_torch.parallel.mesh.DeviceMesh` serves over several devices (the
+    counterpart of the JAX encoder's ``mesh=``): one replica of the serving weights a
+    device, made once; a batch, whose size must divide by the mesh's, is split in device
+    order, each part's forward issued on its device before any result is read, and the
+    embeddings come back on the first device. It replaces `device`.
     """
 
     def __init__(
@@ -247,18 +256,23 @@ class R3MEncoder(nn.Module):
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,
         precision: str = "parity",
         device=None,
+        mesh=None,
     ):
         super().__init__()
         if precision not in ("parity", "fast"):
             raise ValueError(f"precision must be 'parity' or 'fast', got {precision!r}")
-        device = resolve_device(device)
+        if mesh is not None:
+            self.devices = tuple(resolve_device(d) for d in mesh.devices)
+        else:
+            self.devices = (resolve_device(device),)
+        self.mesh = mesh
         self.cfg = cfg
         self.precision = precision
         convnet = build_convnet(cfg)
         if state_dict is not None:
             convnet.load_state_dict(state_dict)
-        self.convnet = convnet.to(device).eval()
-        self._folded = None
+        self.convnet = convnet.to(self.devices[0]).eval()
+        self._replicas = None  # the serving weights, one a device: folded trees or ViTs
         self._folded_src = None
 
     @property
@@ -278,14 +292,19 @@ class R3MEncoder(nn.Module):
         return tensors, [(t._version, t.data_ptr()) for t in tensors]
 
     def refold(self):
-        """Recompute the BN-folded serving weights from the current parameters."""
+        """Recompute the serving weights of every device from the current parameters:
+        the BN-folded tree of a ResNet, the ViT itself (copied to the other devices)."""
+        devices = (self.device,) + self.devices[1:]
         if self.cfg.size == 0:
-            return  # the ViT folds nothing
-        with torch.inference_mode():
-            folded = fold_batchnorm(self.convnet)
-            if self.precision == "fast":
-                folded = cast_folded(folded, torch.bfloat16)
-        self._folded = folded
+            replicas = [self.convnet] + [copy.deepcopy(self.convnet).to(d) for d in devices[1:]]
+        else:
+            with torch.inference_mode():
+                folded = fold_batchnorm(self.convnet)
+                if self.precision == "fast":
+                    folded = cast_folded(folded, torch.bfloat16)
+                replicas = [folded] + [cast_folded(folded, folded["conv1"]["w"].dtype, d)
+                                       for d in devices[1:]]
+        self._replicas = replicas
         self._folded_src = self._weights_stamp()
 
     def _stale(self) -> bool:
@@ -319,20 +338,33 @@ class R3MEncoder(nn.Module):
             raise ValueError(
                 f"expected NCHW [B, 3, H, W] images, got {tuple(obs.shape)}{hint}"
             )
+        n = len(self.devices)
+        if obs.shape[0] % n:
+            raise ValueError(f"batch of {obs.shape[0]} not divisible by the mesh's "
+                             f"{n} devices")
         fast = self.precision == "fast"
         precision_scope = contextlib.nullcontext() if fast else full_f32()
+        # the ViT's replicas exist only on a mesh of several devices
+        replicate = self.cfg.size != 0 or n > 1
+        if replicate and self._stale():
+            self.refold()
+        per = obs.shape[0] // n
         with torch.inference_mode(), precision_scope:
-            obs = obs.to(self.device).permute(0, 2, 3, 1)  # NHWC view
-            if self.cfg.size == 0:
-                cfg = self.cfg
-                if fast:
-                    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
-                return r3m_embed(cfg, self.convnet, obs)
-            if self._stale():
-                self.refold()
-            x = _preprocess(self.cfg, obs)
-            x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-            return resnet_apply_folded(
-                self._folded, x, size=self.cfg.size,
-                compute_dtype=torch.bfloat16 if fast else None,
-            )
+            outs = []
+            for i in range(n):  # every part is queued before any result is read
+                device = self.device if i == 0 else self.devices[i]
+                part = obs[i * per:(i + 1) * per].to(device).permute(0, 2, 3, 1)  # NHWC
+                weights = self._replicas[i] if replicate else self.convnet
+                outs.append(self._embed(weights, part, fast))
+            return outs[0] if n == 1 else torch.cat([o.to(outs[0].device) for o in outs])
+
+    def _embed(self, weights, obs: torch.Tensor, fast: bool) -> torch.Tensor:
+        if self.cfg.size == 0:
+            cfg = self.cfg
+            if fast:
+                cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+            return r3m_embed(cfg, weights, obs)
+        x = _preprocess(self.cfg, obs)
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return resnet_apply_folded(weights, x, size=self.cfg.size,
+                                   compute_dtype=torch.bfloat16 if fast else None)

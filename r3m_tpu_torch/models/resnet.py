@@ -16,6 +16,7 @@ import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -120,16 +121,24 @@ class ResNet(nn.Module):
         for stage in range(4):
             yield from getattr(self, f"layer{stage + 1}")
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, bn_group=None) -> torch.Tensor:
         """NCHW normalized images -> ``[B, out_dim]`` f32 features; convolutions run in
         x.dtype (weights cast to it, as ``resnet.py:92`` does).
 
         ``train=False`` is the port of ``resnet_apply(train=False)``: BatchNorm reads its
         running statistics whatever the module's mode. ``train=True`` is the port of
         ``resnet_apply(train=True)``: BatchNorm normalises with the batch statistics and
-        updates the running statistics in place (`_bn_train`).
+        updates the running statistics in place (`_bn_train`); with `bn_group` (a process
+        group, the data-parallel step's) the statistics are those of every rank's rows
+        together (`_bn_train_synced`).
         """
-        bn_fn = _bn_train if train else _bn_eval
+        if not train:
+            bn_fn = _bn_eval
+        elif bn_group is None:
+            bn_fn = _bn_train
+        else:
+            def bn_fn(y, bn):
+                return _bn_train_synced(y, bn, bn_group)
 
         def conv_bn(y, conv, bn, stride, padding):
             y = F.conv2d(y, conv.weight.to(y.dtype), None, stride, padding)
@@ -166,6 +175,36 @@ def _bn_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
         y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
         training=True, momentum=BN_MOMENTUM, eps=BN_EPS,
     )
+
+
+def _bn_train_synced(y: torch.Tensor, bn: nn.BatchNorm2d, group) -> torch.Tensor:
+    """Train BatchNorm over the rows of every rank of `group`, the JAX
+    ``batch_norm(train=True)`` of the global batch (``resnet.py:100-130``): each rank sums
+    its rows and their squares over (N, H, W) in f32, one all-reduce adds the sums, and
+    mean = sum / n, variance = sumsq / n - mean^2, as JAX computes them; normalised with
+    the biased variance, the running variance updated with the unbiased one over the
+    global count, momentum 0.1, eps 1e-5; output in y.dtype.
+
+    Every rank holds as many rows (the gather of the embeddings needs it too), so the
+    global count is the local one times the world size, exact on the host. The gradient
+    flows through the autograd all-reduce (`all_reduce_sum`).
+    """
+    from r3m_tpu_torch.parallel.collectives import all_reduce_sum
+
+    c = y.shape[1]
+    n = y.numel() // c * dist.get_world_size(group)
+    dims = (0, 2, 3)
+    yf = y.to(torch.float32)
+    sums = all_reduce_sum(torch.cat([yf.sum(dim=dims), (yf * yf).sum(dim=dims)]), group)
+    mean = sums[:c] / n
+    var = sums[c:] / n - mean * mean
+    with torch.no_grad():
+        bn.running_mean.mul_(1 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+        bn.running_var.mul_(1 - BN_MOMENTUM).add_(var * (n / max(n - 1, 1)),
+                                                   alpha=BN_MOMENTUM)
+    inv = torch.rsqrt(var + BN_EPS) * bn.weight.float()
+    shift = bn.bias.float() - mean * inv
+    return torch.addcmul(shift[:, None, None], yf, inv[:, None, None]).to(y.dtype)
 
 
 def _bn_eval(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -210,13 +249,14 @@ def fold_batchnorm(net: ResNet, eps: float = BN_EPS) -> Dict[str, Any]:
     return folded
 
 
-def cast_folded(folded: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
-    """The folded tree with every tensor in `dtype` (serving casts once, not per call)."""
+def cast_folded(folded: Dict[str, Any], dtype: torch.dtype, device=None) -> Dict[str, Any]:
+    """The folded tree with every tensor in `dtype` (serving casts once, not per call),
+    on `device` if given."""
     if isinstance(folded, dict):
-        return {k: cast_folded(v, dtype) for k, v in folded.items()}
+        return {k: cast_folded(v, dtype, device) for k, v in folded.items()}
     if isinstance(folded, list):
-        return [cast_folded(v, dtype) for v in folded]
-    return folded.to(dtype)
+        return [cast_folded(v, dtype, device) for v in folded]
+    return folded.to(device=device, dtype=dtype)
 
 
 def _conv_bias(x, p, stride, padding):

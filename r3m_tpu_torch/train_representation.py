@@ -11,6 +11,17 @@ The config is ``cfgs/config_rep.yaml`` at the repo's root (``--config PATH`` for
 on the CPU). ``--retries N`` rebuilds the workspace after a crash, up to N times, and
 auto-resume continues from the last snapshot. SIGTERM finishes the current step, writes a
 final snapshot and exits 0.
+
+Over several cards, one process a card:
+
+    torchrun --nproc_per_node=8 -m r3m_tpu_torch.train_representation datapath=... \
+        batch_size=512
+
+or ``n_devices=8`` without a launcher, for which this command starts the 8 ranks itself
+(``n_devices: null`` takes every visible card). ``batch_size`` is the global batch.
+``distributed_init`` (``auto``, ``true``, ``false``) says whether to join the job's process
+group, as the root CLI's does; under a launcher ``n_devices``, if set, must equal the
+job's world size.
 """
 
 from __future__ import annotations
@@ -35,28 +46,20 @@ def _install_sigterm(ws) -> None:
     signal.signal(signal.SIGTERM, handler)
 
 
-def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(
-        prog="python -m r3m_tpu_torch.train_representation", allow_abbrev=False,
-        description="R3M pretraining on one device (Hydra-style key=value overrides).")
-    parser.add_argument("--config", default=DEFAULT_CONFIG, help="root YAML config")
-    parser.add_argument("--retries", type=int, default=0,
-                        help="rebuild the workspace after a crash, up to this many times")
-    parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
-    parser.add_argument("overrides", nargs="*", help="key.path=value (+key=value adds)")
-    args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
-
+def _run(cfg, device, retries: int) -> None:
+    """One process's training: join the job's process group (where the config or a
+    launcher asks), then the workspace, rebuilt up to `retries` times after a crash."""
+    from r3m_tpu_torch.parallel.mesh import init_distributed
     from r3m_tpu_torch.training.workspace import Workspace
-    from r3m_tpu_torch.utils.config import load_config
 
-    cfg = load_config(args.config, overrides=args.overrides)
+    device = init_distributed(cfg.get("distributed_init", "auto"), device=device)
     attempt = 0
     while True:
         ws = None
         try:
             # built inside the try: a crash while rebuilding the workspace (a transient
             # storage error, a device reset) is what the requeue is for
-            ws = Workspace(cfg, device=args.device)
+            ws = Workspace(cfg, device=device)
             _install_sigterm(ws)
             ws.train()
             return
@@ -64,12 +67,48 @@ def main(argv=None) -> None:
             raise
         except Exception as e:  # the requeue boundary: report, then retry or re-raise
             attempt += 1
-            if attempt > args.retries:
+            if attempt > retries:
                 raise
-            print(f"[requeue] attempt {attempt}/{args.retries} after {type(e).__name__}: {e}")
+            print(f"[requeue] attempt {attempt}/{retries} after {type(e).__name__}: {e}")
         finally:
             if ws is not None:
                 ws.close()
+
+
+def _rank_main(cfg, device, retries: int) -> None:
+    """A rank that this command started: it joins the job, whatever distributed_init says."""
+    cfg["distributed_init"] = "true"
+    _run(cfg, device, retries)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        prog="python -m r3m_tpu_torch.train_representation", allow_abbrev=False,
+        description="R3M pretraining on one device or, one process a card, on several "
+                    "(Hydra-style key=value overrides).")
+    parser.add_argument("--config", default=DEFAULT_CONFIG, help="root YAML config")
+    parser.add_argument("--retries", type=int, default=0,
+                        help="rebuild the workspace after a crash, up to this many times")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default: cuda:LOCAL_RANK in a job of several ranks), "
+                             "cuda:N or cpu")
+    parser.add_argument("overrides", nargs="*", help="key.path=value (+key=value adds)")
+    args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
+
+    import torch
+
+    from r3m_tpu_torch.parallel.mesh import launch_local, launched
+    from r3m_tpu_torch.training.workspace import data_parallel_world
+    from r3m_tpu_torch.utils.config import load_config
+
+    cfg = load_config(args.config, overrides=args.overrides)
+    n_ranks = data_parallel_world(cfg, torch.device(args.device))
+    if n_ranks > 1 and not launched():
+        # no launcher: one process a device, started here, as one JAX command uses the
+        # node; a SIGTERM to this process reaches every rank
+        launch_local(_rank_main, n_ranks, cfg, args.device, args.retries)
+    else:
+        _run(cfg, args.device, args.retries)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,12 @@ step a call; the `TrainState` is updated in place and returned.
 Random draws come from the `torch.Generator` the state carries, in the JAX step's order:
 the crops, then the permutations. Tests hand in the JAX package's crops and permutations
 (``crops=``, ``perms=``), since the two generators never agree.
+
+With ``mesh=`` the step is data-parallel, one process a card, and computes what the JAX
+step computes over a mesh (``trainer.py:343-356``): the global batch's crops and
+permutations, drawn on every rank from generators that stay in step; BatchNorm statistics
+over every rank's rows; the embeddings gathered, so the negatives span the global
+(micro)batch; one global loss; the gradients averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from r3m_tpu_torch.data.augment import random_resized_crop_clips
+from r3m_tpu_torch.data.augment import random_resized_crop_clips, sample_crop_params
 from r3m_tpu_torch.losses import draw_permutations, r3m_loss
 from r3m_tpu_torch.models.distilbert import DistilBert, sentence_embedding
 from r3m_tpu_torch.models.r3m import (
@@ -33,6 +40,13 @@ from r3m_tpu_torch.models.r3m import (
     r3m_init,
     resolve_device,
 )
+from r3m_tpu_torch.parallel.collectives import (
+    all_gather_rows,
+    assert_same_everywhere,
+    average_gradients,
+    broadcast_state,
+)
+from r3m_tpu_torch.parallel.mesh import local_rows
 from r3m_tpu_torch.utils.misc import schedule_fn
 
 Batch = Mapping[str, Union[torch.Tensor, np.ndarray]]
@@ -134,12 +148,24 @@ def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
             .to(device) for k, v in batch.items()}
 
 
-def _encode_and_loss(cfg, model, images, lang_emb, lang_mask, perms, train, prenormalized):
-    """Shared forward: ``[B, 5, H, W, 3]`` images -> (full_loss, metrics)."""
+def _encode_and_loss(cfg, model, images, lang_emb, lang_mask, perms, train, prenormalized,
+                     group=None):
+    """Shared forward: ``[B, 5, H, W, 3]`` images -> (full_loss, metrics). With a process
+    `group` the images are this rank's rows: BatchNorm (in train mode) takes the statistics
+    of every rank's rows, and the loss is that of every rank's embeddings and language
+    gathered in rank order."""
     bs = images.shape[0]
     flat = images.reshape(bs * 5, *images.shape[2:])
-    emb = r3m_embed(cfg, model.convnet, flat, train=train, prenormalized=prenormalized)
-    return r3m_loss(cfg, model.lang_rew, emb.reshape(bs, 5, -1), lang_emb, lang_mask, perms)
+    emb = r3m_embed(cfg, model.convnet, flat, train=train, prenormalized=prenormalized,
+                    bn_group=group if train else None)
+    emb = emb.reshape(bs, 5, -1)
+    if group is not None:
+        emb = all_gather_rows(emb, group)
+        if lang_emb is not None:
+            with torch.no_grad():
+                lang_emb = all_gather_rows(lang_emb, group)
+                lang_mask = all_gather_rows(lang_mask, group)
+    return r3m_loss(cfg, model.lang_rew, emb, lang_emb, lang_mask, perms)
 
 
 def _language(cfg, bert, batch):
@@ -162,12 +188,36 @@ def _precision(cfg: R3MConfig):
     return full_f32() if cfg.compute_dtype == "float32" else contextlib.nullcontext()
 
 
+def _group(mesh):
+    """The process group a ``mesh=`` names: ``True`` is the default group."""
+    if mesh is None:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError("a data-parallel step (mesh=...) needs a process group: join "
+                           "one with r3m_tpu_torch.parallel.mesh.init_distributed")
+    return dist.group.WORLD if mesh is True else mesh
+
+
+def broadcast_train_state(state: TrainState, group=None) -> None:
+    """Give every rank rank 0's state, in place: parameters, BatchNorm statistics, the
+    optimizer's moments, the generator and the step."""
+    tensors = list(state.model.state_dict().values())
+    for per_param in state.optimizer.state.values():
+        tensors.extend(v for _, v in sorted(per_param.items()) if torch.is_tensor(v))
+    gen_state = state.generator.get_state()
+    step = torch.tensor([state.step], dtype=torch.int64)
+    broadcast_state(tensors + [gen_state, step], group=group)
+    state.generator.set_state(gen_state)
+    state.step = int(step)
+
+
 def make_train_step(
     cfg: R3MConfig,
     bert_params: Optional[DistilBert] = None,
     doaug: str = "none",
     grad_accum: int = 1,
     device=None,
+    mesh=None,
 ):
     """Build the train step ``step(state, batch, perms=None, crops=None) -> (state,
     metrics)``.
@@ -189,6 +239,14 @@ def make_train_step(
     global L2 norm of the gradients), averaged over microbatches.
 
     With ``cfg.compute_dtype="float32"`` the step runs in true f32 (`_precision`).
+
+    `mesh`, a process group (``True`` for the default one), makes the step data-parallel:
+    `batch` holds this rank's rows of the global batch of ``B = W * local rows``, laid out
+    by `local_rows`; `crops` are the global batch's and `perms` the global microbatches'.
+    The crops and permutations are drawn for the global batch on every rank (the first
+    call checks that the generators agree), BatchNorm and the loss span every rank's rows
+    of a microbatch, and the gradients are averaged over the ranks before the update. The
+    metrics are the global ones, the same on every rank.
     """
     if doaug not in ("none", "rc", "rctraj"):
         raise ValueError(
@@ -199,6 +257,10 @@ def make_train_step(
     bert = _check_bert(cfg, bert_params, device)
     lr_fn = schedule_fn(cfg.lr)
     prenorm = doaug in ("rc", "rctraj")
+    group = _group(mesh)
+    world, rank = (1, 0) if group is None else (dist.get_world_size(group),
+                                                 dist.get_rank(group))
+    unchecked = group is not None  # the generators are compared at the first call
 
     def step(state: TrainState, batch: Batch,
              perms: Optional[Union[Perms, Sequence[Perms]]] = None,
@@ -207,22 +269,31 @@ def make_train_step(
             return _step(state, batch, perms, crops)
 
     def _step(state, batch, perms, crops):
+        nonlocal unchecked
         if state.device != device:
             raise ValueError(f"state lives on {state.device}, the step on {device}")
         batch = _to_device(batch, device)
         images = batch["images"]
+        bs = images.shape[0]
+        rows = local_rows(bs * world, grad_accum, world, rank)  # checks the divisibility
+        if unchecked:
+            assert_same_everywhere(state.generator.get_state(), "the step's generator", group)
+            unchecked = False
         if prenorm:
+            if crops is None:
+                b, f, hgt, wid = images.shape[:4]
+                n = b * world if doaug == "rctraj" else b * world * f
+                crops = sample_crop_params(state.generator, n, hgt, wid)
+            if group is not None:
+                crops = crops.reshape(bs * world, -1, 4)[torch.as_tensor(rows)]
             mean, std = cfg.norm_stats
             images = random_resized_crop_clips(
-                images, cfg.image_size, doaug, state.generator, rects=crops,
+                images, cfg.image_size, doaug, rects=crops,
                 compute_dtype=cfg.torch_compute_dtype, mean=mean, std=std,
             )
-        bs = images.shape[0]
-        if bs % grad_accum:
-            raise ValueError(f"batch size {bs} not divisible by grad_accum={grad_accum}")
         micro = bs // grad_accum
         if perms is None:
-            perms = [draw_permutations(state.generator, micro, cfg.num_negatives)
+            perms = [draw_permutations(state.generator, micro * world, cfg.num_negatives)
                      for _ in range(grad_accum)]
         elif isinstance(perms, Mapping):
             perms = [perms]
@@ -238,16 +309,18 @@ def make_train_step(
                 cfg, state.model, images[part],
                 None if lang_emb is None else lang_emb[part],
                 None if lang_mask is None else lang_mask[part],
-                {k: v.to(device) for k, v in perms[m].items()}, True, prenorm,
+                {k: v.to(device) for k, v in perms[m].items()}, True, prenorm, group,
             )
             (loss / grad_accum).backward()
             for k, v in metrics.items():
                 sums[k] = sums[k] + v.detach() if k in sums else v.detach()
         metrics = {k: v / grad_accum for k, v in sums.items()}
+        if group is not None:
+            average_gradients(state.model.parameters(), group)
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
         metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr_fn(state.step)
+        for param_group in state.optimizer.param_groups:
+            param_group["lr"] = lr_fn(state.step)
         state.optimizer.step()
         state.step += 1
         return state, metrics
@@ -255,15 +328,20 @@ def make_train_step(
     return step
 
 
-def make_eval_step(cfg: R3MConfig, bert_params: Optional[DistilBert] = None, device=None):
+def make_eval_step(cfg: R3MConfig, bert_params: Optional[DistilBert] = None, device=None,
+                   mesh=None):
     """The eval step ``eval_step(state, batch, generator=None, perms=None) -> metrics``:
     the same losses and metrics with BatchNorm in eval mode, no augmentation, no gradient,
     no update; the state is left as it was (the reference's ``update(eval=True)`` under
     no_grad, train_representation.py:114-117). The permutations come from `perms` or are
     drawn from `generator`, the counterpart of the JAX step's key. An f32 eval step runs
-    in true f32, as the train step does."""
+    in true f32, as the train step does. With `mesh` (as `make_train_step`'s) `batch` is
+    this rank's block of the global batch, rank after rank: the embeddings are gathered
+    and the permutations and metrics are the global batch's."""
     device = resolve_device(device)
     bert = _check_bert(cfg, bert_params, device)
+    group = _group(mesh)
+    world = 1 if group is None else dist.get_world_size(group)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch,
@@ -278,11 +356,11 @@ def make_eval_step(cfg: R3MConfig, bert_params: Optional[DistilBert] = None, dev
         if perms is None:
             if generator is None:
                 raise ValueError("eval_step needs a generator or perms")
-            perms = draw_permutations(generator, images.shape[0], cfg.num_negatives)
+            perms = draw_permutations(generator, images.shape[0] * world, cfg.num_negatives)
         lang_emb, lang_mask = _language(cfg, bert, batch)
         _, metrics = _encode_and_loss(
             cfg, state.model, images, lang_emb, lang_mask,
-            {k: v.to(device) for k, v in perms.items()}, False, False,
+            {k: v.to(device) for k, v in perms.items()}, False, False, group,
         )
         return metrics
 

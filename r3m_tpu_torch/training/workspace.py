@@ -11,7 +11,14 @@ On the card, batches leave the host pipeline through a producer thread that pins
 and copies them to the device on a side stream (`Workspace._place`), at most
 ``device_prefetch`` batches ahead; the step's stream waits on the copy's event. The step
 runs the stem pool through kernels K1/K2 (ResNet) or the attention through K3/K4 (ViT).
-One process trains on one device: data-parallel training across cards is not ported yet.
+
+Over several cards the workspace is one rank of a data-parallel job, one process a card
+(``torchrun``, or ``n_devices=N``, for which ``python -m r3m_tpu_torch.train_representation``
+starts the ranks), as the JAX workspace is one host of a mesh (``workspace.py:144-235``):
+``batch_size`` is global, and rank ``r`` of ``W`` samples its manifest shard with seed
+``seed + r`` and feeds ``batch_size / W`` rows to the data-parallel step; rank 0's state
+and frozen BERT are broadcast after the resume; only rank 0 logs and snapshots; a SIGTERM
+stops every rank at the same step (the flag is all-reduced at each metric flush).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from r3m_tpu_torch.checkpoint import (
     AsyncSnapshotWriter,
@@ -36,28 +44,44 @@ from r3m_tpu_torch.data.ego4d import Ego4DDataset, FrameBatcher
 from r3m_tpu_torch.data.pipeline import DataPipeline, ProducerQueue
 from r3m_tpu_torch.models.distilbert import load_bert
 from r3m_tpu_torch.models.r3m import R3MConfig, resolve_device
+from r3m_tpu_torch.parallel.collectives import any_rank, broadcast_state
+from r3m_tpu_torch.parallel.mesh import init_distributed, local_rows, rank, world
 from r3m_tpu_torch.text.tokenizer import WordPieceTokenizer
-from r3m_tpu_torch.training.trainer import create_train_state, make_eval_step, make_train_step
+from r3m_tpu_torch.training.trainer import (
+    broadcast_train_state,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
 from r3m_tpu_torch.utils.config import Config, agent_to_r3m_config
 from r3m_tpu_torch.utils.logger import Logger
 from r3m_tpu_torch.utils.misc import Every, Until, set_seed_everywhere
 from r3m_tpu_torch.utils.profiling import start_trace, stop_trace
 
 
-def _refuse_data_parallel(cfg: Config) -> None:
-    """Raise for the settings that need more than one device (DDP, not ported yet)."""
-    why = None
+def data_parallel_world(cfg: Config, device: torch.device) -> int:
+    """The number of ranks the config asks for: ``n_devices``, or with ``n_devices: null``
+    every visible card (as the JAX workspace's ``len(jax.devices())``; one on the CPU)."""
     n_dev = cfg.get("n_devices")
-    if n_dev is not None and int(n_dev) > 1:
-        why = f"n_devices={n_dev}"
-    elif int(cfg.get("n_slices", 1) or 1) > 1:
-        why = f"n_slices={cfg.get('n_slices')}"
-    elif str(cfg.get("distributed_init", "auto")).lower() in ("true", "1", "yes"):
-        why = "distributed_init=true"
-    if why:
-        raise NotImplementedError(
-            f"{why}: multi-GPU data-parallel training (DDP) is not ported yet "
-            "(ROADMAP §1.7); train on one device with n_devices=1 (or null)")
+    if n_dev is None:
+        return torch.cuda.device_count() if device.type == "cuda" else 1
+    return int(n_dev)
+
+
+def _check_world(cfg: Config, device: torch.device) -> int:
+    """The job's world size: the process group's, which ``n_devices`` must agree with; with
+    no group one device, and then ``n_devices`` must ask for no more."""
+    want = data_parallel_world(cfg, device)
+    if dist.is_initialized():
+        if cfg.get("n_devices") is not None and want != world():
+            raise ValueError(f"n_devices={want} but the job has {world()} ranks")
+        return world()
+    if want > 1:
+        raise ValueError(
+            f"n_devices={cfg.get('n_devices')} ({want} devices) needs one process a "
+            "device: launch with torchrun, or through python -m "
+            "r3m_tpu_torch.train_representation, which starts the ranks itself")
+    return 1
 
 
 def _report_ignored(cfg: Config, mcfg: R3MConfig) -> None:
@@ -65,6 +89,9 @@ def _report_ignored(cfg: Config, mcfg: R3MConfig) -> None:
     notes = []
     if cfg.get("compilation_cache_dir"):
         notes.append("compilation_cache_dir (there is no XLA compilation cache)")
+    if int(cfg.get("n_slices", 1) or 1) > 1:
+        notes.append(f"n_slices={cfg.get('n_slices')} (NCCL arranges the reductions over "
+                     "hosts itself)")
     agent = cfg.get("agent") or {}
     if "packed_bn" in agent:
         notes.append("agent.packed_bn (a TPU memory layout with the same math; BatchNorm "
@@ -80,27 +107,32 @@ class Workspace:
 
     `cfg` is a `load_config` result of ``cfgs/config_rep.yaml``; `work_dir` (default
     ``cfg.log_dir``, else the current directory) receives ``train.csv``, ``eval.csv`` and
-    the snapshots; `device` is ``"cuda"`` unless given.
+    the snapshots; `device` is ``"cuda"`` unless given (``cuda:LOCAL_RANK`` in a job of
+    several ranks). ``distributed_init`` joins the job's process group first
+    (`init_distributed`) where the caller has not.
     """
 
     def __init__(self, cfg: Config, work_dir: Optional[str] = None, device=None):
         self.work_dir = work_dir or cfg.get("log_dir") or os.getcwd()
         print(f"workspace: {self.work_dir}")
         self.cfg = cfg
-        _refuse_data_parallel(cfg)
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            print(f"[workspace] training on {self.device} "
-                  f"({torch.cuda.get_device_name(self.device)}); "
-                  f"{torch.cuda.device_count()} CUDA device(s) visible, one used")
-        else:
-            print(f"[workspace] training on {self.device}")
+        self.device = resolve_device(
+            init_distributed(cfg.get("distributed_init", "auto"), device=device))
+        self.world = _check_world(cfg, self.device)
+        self.rank = rank()
+        self.is_lead = self.rank == 0
+        self._mesh = True if dist.is_initialized() else None
+        where = (f"{self.device} ({torch.cuda.get_device_name(self.device)}); "
+                 f"{torch.cuda.device_count()} CUDA device(s) visible"
+                 if self.device.type == "cuda" else f"{self.device}")
+        print(f"[workspace] training on {where}; rank {self.rank} of {self.world}")
         seed = set_seed_everywhere(int(cfg.get("seed", 1)))
         self.logger = Logger(
             self.work_dir,
-            use_tb=bool(cfg.get("use_tb", False)),
-            use_wandb=bool(cfg.get("use_wandb", False)),
+            use_tb=bool(cfg.get("use_tb", False)) and self.is_lead,
+            use_wandb=bool(cfg.get("use_wandb", False)) and self.is_lead,
             cfg=dict(cfg),
+            enabled=self.is_lead,
         )
 
         # ---- model config ---------------------------------------------------------
@@ -131,11 +163,17 @@ class Workspace:
         # ---- data -------------------------------------------------------------------
         if cfg.get("dataset", "ego4d") != "ego4d":
             raise NameError("Invalid Dataset")
-        bs = int(cfg.get("batch_size", 32))
+        global_bs = int(cfg.get("batch_size", 32))
+        if global_bs % self.world:
+            raise ValueError(f"batch_size={global_bs} not divisible by {self.world} ranks")
+        bs = global_bs // self.world  # this rank's rows
+        grad_accum = int(cfg.get("grad_accum", 1) or 1)
+        local_rows(global_bs, grad_accum, self.world, self.rank)  # checks the layout
         print("Creating Dataloader")
+        shard = dict(shard_index=self.rank, num_shards=self.world)
         train_ds = Ego4DDataset(cfg["datapath"], alpha=float(cfg.get("alpha", 0.2)),
-                                seed=seed)
-        val_ds = Ego4DDataset(cfg["datapath"], alpha=0.0, seed=seed + 1)
+                                seed=seed + self.rank, **shard)
+        val_ds = Ego4DDataset(cfg["datapath"], alpha=0.0, seed=seed + 1 + self.rank, **shard)
         self.decoder, why = decoder_status()
         print(f"[data] JPEG decoder: {self.decoder}" + (f" ({why})" if why else ""))
         self._local_bs = bs
@@ -146,10 +184,10 @@ class Workspace:
             doaug = "none"
         print("Initializing Model")
         self.train_step = make_train_step(
-            mcfg, self.bert, doaug=doaug, grad_accum=int(cfg.get("grad_accum", 1) or 1),
-            device=self.device,
+            mcfg, self.bert, doaug=doaug, grad_accum=grad_accum, device=self.device,
+            mesh=self._mesh,
         )
-        self.eval_step = make_eval_step(mcfg, self.bert, device=self.device)
+        self.eval_step = make_eval_step(mcfg, self.bert, device=self.device, mesh=self._mesh)
         self._new_state = lambda: create_train_state(mcfg, seed, device=self.device)
         self.state = self._new_state()
 
@@ -164,6 +202,10 @@ class Workspace:
                     cfg["load_snap"], self.state, with_meta=True)
         else:
             self.state, resume_meta = self._auto_resume(self.state)
+        if self._mesh:  # every rank resumed; rank 0's state and frozen BERT are the job's
+            broadcast_train_state(self.state)
+            if self.bert is not None:
+                broadcast_state(self.bert)
 
         # ---- data stream resume, then the pipelines ---------------------------------
         # The pipelines start drawing from the dataset generators at once, so they are
@@ -180,7 +222,8 @@ class Workspace:
         self._stream_fp = {"train": train_ds.stream_fingerprint(),
                            "val": val_ds.stream_fingerprint()}
         if loaded_step > 0 and bool(cfg.get("resume_data_stream", True)):
-            if (ds_meta.get("local_batch_size") == bs and ds_meta.get("num_hosts") == 1
+            if (ds_meta.get("local_batch_size") == bs
+                    and ds_meta.get("num_hosts") == self.world
                     and ds_meta.get("stream_fp") == self._stream_fp):
                 t_n = int(ds_meta.get("train_batches", 0))
                 v_n = int(ds_meta.get("val_batches", 0))
@@ -196,7 +239,8 @@ class Workspace:
                            "or a JAX package snapshot, whose fingerprint hashes paths)")
                 elif "stream_fp" in ds_meta:
                     why = (f"{ds_meta.get('num_hosts')} hosts x batch "
-                           f"{ds_meta.get('local_batch_size')} (this run: 1 x {bs})")
+                           f"{ds_meta.get('local_batch_size')} (this run: {self.world} x "
+                           f"{bs})")
                 else:
                     why = "a snapshot without a stream fingerprint"
                 print(f"[resume] the snapshot's data-stream counters were taken against "
@@ -213,9 +257,10 @@ class Workspace:
                              else None)
         # snapshot writes overlap training (the device -> host copy stays synchronous);
         # async_snapshot=false makes every save blocking
-        self._snap_writer = AsyncSnapshotWriter() if bool(cfg.get("async_snapshot", True)) \
-            else None
-        self._stop_requested = False
+        self._snap_writer = (AsyncSnapshotWriter() if self.is_lead
+                             and bool(cfg.get("async_snapshot", True)) else None)
+        self._stop_requested = False  # set by a signal
+        self._stop = False  # in a job: whether any rank's was set, at the last flush
 
     # ------------------------------------------------------------------------------
     def _make_batcher(self, ds: Ego4DDataset):
@@ -251,6 +296,17 @@ class Workspace:
         a flag). The CLI wires SIGTERM here, so an evicted job finishes its step, writes a
         final snapshot and exits cleanly for auto-resume."""
         self._stop_requested = True
+
+    def _agree_stop(self) -> None:
+        """In a job of several ranks, at a metric flush (every rank reaches it at the same
+        step): stop when any rank was asked to (one all-reduce), so that every rank stops
+        after the same step."""
+        if self._mesh:
+            self._stop = any_rank(self._stop_requested, self.device)
+
+    def _stopping(self) -> bool:
+        """Whether to stop: on one device as soon as asked; in a job, as last agreed."""
+        return self._stop if self._mesh else self._stop_requested
 
     @property
     def global_step(self) -> int:
@@ -318,7 +374,8 @@ class Workspace:
             self._train_loop(placed, until, every, flush_n)
         finally:
             placed.close()  # stops the producer and frees its device batches
-        if self._stop_requested and cfg.get("snapshot", True) and self.global_step > 0:
+        if (self._stopping() and self.is_lead and cfg.get("snapshot", True)
+                and self.global_step > 0):
             print(f"[workspace] stop requested — snapshot at step {self.global_step}")
             self.save_snapshot()
         self.flush_snapshots()  # every snapshot durable before returning
@@ -332,7 +389,7 @@ class Workspace:
         prof = None
         pending = []  # [(step, device metrics, sample_s, update_s)]
         win_t0 = time.time()  # window wall clock -> the true time a step
-        while until(self.global_step) and not self._stop_requested:
+        while until(self.global_step) and not self._stopping():
             if prof_dir and prof is None and self.global_step == prof_start:
                 prof = start_trace(prof_dir)
             t0 = time.time()
@@ -349,13 +406,15 @@ class Workspace:
             if len(pending) >= flush_n:
                 self._flush_train_metrics(pending, win_t0)
                 pending = []
+                self._agree_stop()
                 win_t0 = time.time()
 
             if every(step - 1):
                 self._flush_train_metrics(pending, win_t0)
                 pending = []
+                self._agree_stop()
                 self._evaluate(step)
-                if cfg.get("snapshot", True):
+                if cfg.get("snapshot", True) and self.is_lead:
                     self.save_snapshot()
                 win_t0 = time.time()  # eval and snapshot are not billed to the steps
         if prof is not None:
@@ -383,7 +442,8 @@ class Workspace:
         emetrics = {k: v / n_eval for k, v in acc.items()}
         self.logger.log_metrics(emetrics, step, ty="eval")
         self.logger.dump(step, ty="eval")
-        print("EVAL", step, emetrics)
+        if self.is_lead:
+            print("EVAL", step, emetrics)
 
     def _flush_train_metrics(self, pending, win_t0=None) -> None:
         """One stacked device -> host copy for a window of per-step metric dicts.
@@ -409,7 +469,7 @@ class Workspace:
             if step_s is not None:
                 metrics["step_time"] = step_s
             self.logger.log_metrics(metrics, step, ty="train")
-            if step % 10 == 0:
+            if step % 10 == 0 and self.is_lead:
                 print(step, metrics)
                 print(f"Sample time {sample_s}, Update time {update_s}"
                       + (f", Step time {step_s:.4f}" if step_s is not None else ""))
@@ -431,7 +491,7 @@ class Workspace:
                 "train_batches": self._train_stream_pos0 + (self.global_step - self._step0),
                 "val_batches": self._val_batches,
                 "local_batch_size": self._local_bs,
-                "num_hosts": 1,
+                "num_hosts": self.world,
                 "stream_fp": self._stream_fp,
             },
         }

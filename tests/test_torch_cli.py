@@ -134,10 +134,15 @@ def test_collect_image_files_dedups_overlapping_inputs(tmp_path):
 
 
 def test_cli_returns_zero_and_n_devices_waits(monkeypatch, tmp_path):
+    """``--n-devices N`` builds a mesh of the first N cards, which waits for a card: with
+    none it raises before it loads anything (``tests/test_torch_parallel_workspace.py``
+    runs it on the CPU)."""
     monkeypatch.setattr(embed, "main", lambda argv=None: "/some/path.npz")
     assert embed.cli([]) == 0
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="n-devices"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "a.png").write_bytes(b"x")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         embed.main([str(tmp_path), "--out", str(tmp_path / "e.npz"), "--n-devices", "2"])
 
 

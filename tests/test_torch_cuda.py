@@ -625,6 +625,96 @@ def test_workspace_trains_and_resumes_on_the_card(gen, tmp_path):
     assert ws._train_stream_pos0 == 3 and ws.global_step == 5
 
 
+@pytest.fixture
+def nccl_world_1(gen):
+    """A process group of one rank over NCCL on the current card, for this test only."""
+    import torch.distributed as dist
+
+    from r3m_tpu_torch.parallel.mesh import init_distributed
+
+    device = init_distributed("true", device=f"cuda:{torch.cuda.current_device()}")
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    try:
+        yield device
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype,rounded", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_synced_batchnorm_at_world_1_is_batchnorm(nccl_world_1, dtype, rounded):
+    """The data-parallel BatchNorm (sums of x and x^2 all-reduced over NCCL) against
+    BatchNorm in f64 on the same channels_last batch (rounded to `dtype`), relative L2
+    errors: the output and the input gradient to `rounded` (one rounding to `dtype`), the
+    scale and bias gradients and the running statistics, all summed in f32, to 1e-5.
+    torch's own BatchNorm in `dtype` is measured the same way, for the message."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from r3m_tpu_torch.models import resnet
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn((8, 64, 14, 14), generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    up = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+    start = torch.nn.BatchNorm2d(64).cuda()
+    with torch.no_grad():
+        start.weight.uniform_(0.5, 1.5, generator=g)
+        start.bias.uniform_(-0.2, 0.2, generator=g)
+    out = {}
+    for name in ("f64", "torch", "synced"):
+        bn = copy.deepcopy(start).double() if name == "f64" else copy.deepcopy(start)
+        leaf = (x.double() if name == "f64" else x.clone()).requires_grad_(True)
+        if name == "f64":
+            y = F.batch_norm(leaf, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                             training=True, momentum=resnet.BN_MOMENTUM, eps=resnet.BN_EPS)
+        elif name == "torch":
+            y = resnet._bn_train(leaf, bn)
+        else:
+            y = resnet._bn_train_synced(leaf, bn, dist.group.WORLD)
+        y.backward(up.to(y.dtype))
+        out[name] = {"y": y, "dx": leaf.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
+                     "mean": bn.running_mean, "var": bn.running_var}
+    errors = {name: {k: ((t.double() - out["f64"][k]).norm() / out["f64"][k].norm()).item()
+                     for k, t in out[name].items()} for name in ("torch", "synced")}
+    bound = {"y": rounded, "dx": rounded, "dw": 1e-5, "db": 1e-5, "mean": 1e-5, "var": 1e-5}
+    assert all(errors["synced"][k] <= bound[k] for k in bound), errors
+
+
+def test_all_gather_rows_at_world_1_over_nccl(nccl_world_1):
+    """Gathering over one rank returns the rows, and its backward the gradient."""
+    from r3m_tpu_torch.parallel.collectives import all_gather_rows
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((6, 5, 2048), generator=g, device="cuda").requires_grad_(True)
+    up = torch.randn(x.shape, generator=g, device="cuda")
+    y = all_gather_rows(x)
+    y.backward(up)
+    assert torch.equal(y, x) and torch.equal(x.grad, up)
+
+
+def test_data_parallel_step_keeps_the_kernels_and_the_plain_step_keeps_cudnn(
+        nccl_world_1, monkeypatch):
+    """The step with no group normalises with torch's BatchNorm, 20 times for ResNet-18;
+    the data-parallel step never, and both launch K1 and K2 once a step."""
+    import torch.nn.functional as F
+
+    cfg, bert, model, batch, perms, crops = _small_f32_step_inputs()
+    calls = []
+    real = F.batch_norm
+    monkeypatch.setattr(F, "batch_norm", lambda *a, **k: calls.append(1) or real(*a, **k))
+    counts = {}
+    for mesh in (None, True):
+        calls.clear()
+        state = create_train_state(cfg, 0, model=copy.deepcopy(model))
+        step = make_train_step(cfg, copy.deepcopy(bert), doaug="rctraj", mesh=mesh)
+        for c in (maxpool_3x3s2_fwd, maxpool_3x3s2_bwd):
+            c.launches = 0
+        state, metrics = step(state, batch, perms=perms, crops=crops)
+        assert np.isfinite(float(metrics["full_loss"]))
+        counts[mesh] = (len(calls), maxpool_3x3s2_fwd.launches, maxpool_3x3s2_bwd.launches)
+    assert counts == {None: (20, 1, 1), True: (0, 1, 1)}
+
+
 def _one_step(device, cfg, bert, model, batch, perms, crops):
     state = create_train_state(cfg, 0, model=copy.deepcopy(model), device=device)
     step = make_train_step(cfg, copy.deepcopy(bert), doaug="rctraj", device=device)

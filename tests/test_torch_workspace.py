@@ -436,10 +436,31 @@ def test_language_run_snapshot_serves_rewards(data, tmp_path):
 
 
 @pytest.mark.parametrize("setting", ["n_devices=2", "n_slices=2", "distributed_init=true"])
-def test_data_parallel_settings_raise(data, tmp_path, setting):
+def test_data_parallel_settings_raise(data, tmp_path, setting, capsys):
+    """What each data-parallel setting does in one process with no launcher: two devices
+    need two processes, so ``n_devices=2`` raises (the CLI starts the ranks itself);
+    ``n_slices`` is accepted with no effect, and says so; ``distributed_init=true`` joins
+    a process group of one rank and trains through the data-parallel step."""
+    import torch.distributed as dist
+
     key, value = setting.split("=")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Workspace(_cfg(data, **{key: value}), work_dir=str(tmp_path), device="cpu")
+    cfg = _cfg(data, **{key: value})
+    if key == "n_devices":
+        with pytest.raises(ValueError, match="one process a device"):
+            Workspace(cfg, work_dir=str(tmp_path), device="cpu")
+        return
+    try:
+        ws = _run(cfg, tmp_path, train=key == "distributed_init")
+        out = capsys.readouterr().out
+        if key == "n_slices":
+            assert "n_slices=2 (NCCL arranges" in out and not dist.is_initialized()
+        else:
+            assert "[distributed] rank 0/1 (gloo, cpu" in out and ws._mesh is True
+            rows = _rows(tmp_path / "train.csv")
+            assert ws.global_step == 3 and np.isfinite(float(rows[-1]["full_loss"]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _cli(args, cwd, code=None):
