@@ -61,7 +61,14 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    embedded (``module.lang_enc.model.*``), scored through ``from_torch_snapshot`` the same
    way in parity, K3 12 times a query, against the CPU; and that ``snapshot.pt`` through
    the convert CLI, ``to-native`` then ``to-torch``: every tensor comes back exactly;
-11. the Ego4D training path (``ego4d_train_resnet50``): an Ego4D-layout dataset written
+11. ``remat="conv_saved"`` (``train_resnet50_conv_saved``): the bf16 ResNet-50 step of 6
+   with the BatchNorm normalise and ReLUs recomputed in the backward, timed in turns with
+   the "none" step (none, conv_saved, conv_saved, none): both train frames/s and peak
+   device memory, K1 and K2 once a step; then one step of each from one state with the
+   draws held fixed, in bf16 and in f32: the losses, the gradients (the bf16 conv_saved
+   gradient as close to the f32 step's as the bf16 "none" one is) and the running
+   statistics (moved once) within the stated bounds (`REMAT_*`);
+12. the Ego4D training path (``ego4d_train_resnet50``): an Ego4D-layout dataset written
    by `write_synthetic_dataset` (48 videos of 12-40 JPEG frames at 224 px, captions of the
    reward sentences) and the training phases' DistilBERT; `Workspace` on the repo's
    ``cfgs/config_rep.yaml`` with the README's settings (ResNet-50, langweight 1, rctraj,
@@ -76,7 +83,16 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    eval batch); the loss is finite and both CSV files hold their rows. Then the native
    decoder against PIL on 300 of the dataset's frames, where the native library built
    (mean abs difference at most 1 grey level);
-12. the data-parallel steps, in spawned children that own their process group:
+13. the downstream probe (``probe_delta_resnet50``): ``python -m r3m_tpu_torch.probe_delta``
+   through its `main` on the card: the reach world at 224 px (32 videos of 20 frames),
+   ResNet-50 at the README's settings (16 clips, rctraj, langweight 1) for 30 steps through
+   `Workspace`, then three random inits, the step-0 snapshot and the trained snapshot
+   scored on 12 held-out videos of 10 frames (reward order, BC probe, linear probes,
+   caption contrast through `R3MRewardModel`): three rows with every metric finite, K1
+   and K2 launched; the seconds of each part and the delivered train frames/s. Then the
+   BC probe on the trained snapshot's embeddings on the card against the CPU from the
+   same weights and minibatches, in true f32 on both (`PROBE_BC_RTOL`);
+14. the data-parallel steps, in spawned children that own their process group:
    ``dp_train_resnet50``, one rank over NCCL, the bf16 step of 6 through the
    data-parallel code (BatchNorm statistics all-reduced, embeddings gathered, gradients
    averaged) timed in turns with the plain step (plain, dp, dp, plain; 2 warm-up and 10
@@ -88,11 +104,13 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    ranks' losses bit-equal, and rank 0 held to the plain step on the whole batch (see
    `dp_gloo2_child`). ``ego4d_train_dp``: `Workspace` with ``distributed_init=true`` joins
    a world of one over NCCL by itself and trains 10 steps of 16 clips on the dataset of
-   11, one eval, one snapshot, the ``[distributed]`` line printed (it runs first in the
+   12, one eval, one snapshot, the ``[distributed]`` line printed (it runs first in the
    child of ``dp_train_resnet50``, which then uses its process group);
-13. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card and on the CPU from
+   ``dp_train_resnet50_conv_saved``, in the same child: one data-parallel step with remat
+   "none" and one with "conv_saved", the same collectives (calls and bytes by kind);
+15. a small f32 step (ResNet-18 at 32 px, ViT at 64 px) on the card and on the CPU from
    the same state, batch, permutations and crops: loss and gradients agree;
-14. one JSON line with every kernel's numbers, then the result line.
+16. one JSON line with every kernel's numbers, then the result line.
 
 Each path's launch counts are set to 0 just before it runs and read just after (in the
 children, by the children); the kernel checks of phase 3 are not counted. Uses no JAX: the port is checked against its
@@ -198,6 +216,40 @@ DP_SAME_LR = 1e-6
 DP_BF16_LOSS_RTOL = 2e-2
 EGO4D_DP_STEPS = 10
 EGO4D_DP_CLIPS = 16
+# remat="conv_saved" against "none" on the bf16 ResNet-50 step, from one state with fixed
+# draws. The two normalise with different BatchNorm forms (cuDNN's against the JAX form,
+# sums of y and y^2 in f32), which moves bf16 activations by a rounding step here and
+# there: the loss to DP_BF16_LOSS_RTOL, as the data-parallel step's synced BatchNorm. The
+# bf16 gradients of a random-init ResNet-50 are far from the f32 step's whatever the form
+# (both ~1.35 in relative L2 on the CPU at 96 px), so the bf16 conv_saved gradient is held
+# to be as close to the f32 gradient as the bf16 "none" gradient is (within
+# REMAT_BF16_GRAD_RATIO), with a global norm within REMAT_BF16_NORM_RTOL of it; the f32
+# conv_saved gradient to REMAT_F32_GRAD_REL_L2 of the f32 "none" one (0.020 on the CPU at
+# 96 px: E[y^2] - E[y]^2 against a two-pass variance). The running statistics to
+# REMAT_STATS_SHARE of the distance one update moves them: a second update would be 0.9.
+REMAT_BF16_GRAD_RATIO = 1.25
+REMAT_BF16_NORM_RTOL = 0.25
+REMAT_F32_GRAD_REL_L2 = 5e-2
+REMAT_STATS_SHARE = 0.1
+# The downstream probe on the card: the reach world at 224 px, PROBE_VIDEOS videos of
+# PROBE_FRAMES frames, ResNet-50 at the README's settings (16 clips, rctraj, langweight 1)
+# for PROBE_STEPS steps, a held-out set of PROBE_SET_VIDEOS x PROBE_SET_FRAMES frames,
+# embedded in chunks of PROBE_EMBED_CHUNK. Then its BC policy trained on the card and on
+# the CPU from the same weights and minibatches, in true f32 on both: curve and val_mse to
+# rtol PROBE_BC_RTOL. At lr 1e-4 for PROBE_BC_STEPS steps: at 1e-3 Adam moves weights
+# whose gradient is rounding noise by ~lr, and past ~150 steps the policy memorises the
+# 108 training frames (train MSE toward 1e-3), where two f32 summation orders part (a
+# 1e-7 change of the inputs moves the curve by 2e-3 at 200 steps on the CPU, by 2e-6 at
+# 100).
+PROBE_VIDEOS = 32
+PROBE_FRAMES = 20
+PROBE_STEPS = 30
+PROBE_CLIPS = 16
+PROBE_SET_VIDEOS = 12
+PROBE_SET_FRAMES = 10
+PROBE_EMBED_CHUNK = 120
+PROBE_BC_STEPS = 100
+PROBE_BC_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -272,7 +324,8 @@ def spills(report: list) -> list:
 def check_pool(gen) -> tuple:
     """K1 at the serving and the training shape, with and without its argmax, on an input
     full of ties, timed as each path runs it (serving without the argmax, training with
-    it), then K2 at the training shape; both exact."""
+    it), then K2 at the training shape; both exact. The same at the probe's shapes: its
+    bf16 pretraining step (K1 with the argmax, K2) and its f32 embedding chunks."""
     from r3m_tpu_torch.ops.pool import (
         maxpool_3x3s2,
         maxpool_3x3s2_bwd,
@@ -282,62 +335,67 @@ def check_pool(gen) -> tuple:
     )
 
     k1, k2 = {}, {}
-    for phase, batch in (("serve", SERVE_BATCH), ("train", TRAIN_BATCH)):
-        for dt in (torch.float32, torch.bfloat16):
-            name = f"{phase}_{DT_NAMES[dt]}"
-            shape = (batch, 112, 112, 64)  # the ResNet stem after conv1, NHWC
-            # relu(randn).round(): ties in most windows
-            x = torch.randn(shape, generator=gen, device="cuda").clamp_min(0).round().to(dt)
-            y, idx = maxpool_3x3s2_fwd(x, argmax=True)
-            y_only, _ = maxpool_3x3s2_fwd(x)
-            ref, ref_idx = maxpool_3x3s2_reference(x)
-            torch.cuda.synchronize()
-            if not (torch.equal(y, ref) and torch.equal(y_only, ref)
-                    and torch.equal(idx, ref_idx)):
-                raise AssertionError(f"K1 {name}: kernel differs from its plain version")
-            argmax = phase == "train"
-            x_nchw = x.permute(0, 3, 1, 2)  # channels_last NCHW view of the same memory
-            outs = (y, idx) if argmax else (y,)
-            k1[name] = row(
-                (y.float() - ref.float()).abs().max().item(),
-                lambda: maxpool_3x3s2_fwd(x, argmax=argmax),
-                lambda: maxpool_3x3s2_reference(x),
-                nbytes(x, *outs), 9 * y.numel(), dt,
-                lambda: F.max_pool2d(x_nchw, 3, 2, 1, return_indices=argmax),
-            )
-            log(f"K1 maxpool {name} {list(shape)}, ties: exact with and without the argmax; "
-                f"timed {'with' if argmax else 'without'} it; {json.dumps(k1[name])}")
-            if phase != "train":
-                continue
+    cases = [(phase, batch, dt) for phase, batch in (("serve", SERVE_BATCH),
+                                                     ("train", TRAIN_BATCH))
+             for dt in (torch.float32, torch.bfloat16)]
+    # the probe's pretraining step (bf16, 16 clips) and its parity embedding chunks
+    cases += [("probe_train", PROBE_CLIPS * FRAMES, torch.bfloat16),
+              ("probe_serve", PROBE_EMBED_CHUNK, torch.float32)]
+    for phase, batch, dt in cases:
+        name = f"{phase}_{DT_NAMES[dt]}"
+        shape = (batch, 112, 112, 64)  # the ResNet stem after conv1, NHWC
+        # relu(randn).round(): ties in most windows
+        x = torch.randn(shape, generator=gen, device="cuda").clamp_min(0).round().to(dt)
+        y, idx = maxpool_3x3s2_fwd(x, argmax=True)
+        y_only, _ = maxpool_3x3s2_fwd(x)
+        ref, ref_idx = maxpool_3x3s2_reference(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, ref) and torch.equal(y_only, ref)
+                and torch.equal(idx, ref_idx)):
+            raise AssertionError(f"K1 {name}: kernel differs from its plain version")
+        argmax = phase.endswith("train")
+        x_nchw = x.permute(0, 3, 1, 2)  # channels_last NCHW view of the same memory
+        outs = (y, idx) if argmax else (y,)
+        k1[name] = row(
+            (y.float() - ref.float()).abs().max().item(),
+            lambda: maxpool_3x3s2_fwd(x, argmax=argmax),
+            lambda: maxpool_3x3s2_reference(x),
+            nbytes(x, *outs), 9 * y.numel(), dt,
+            lambda: F.max_pool2d(x_nchw, 3, 2, 1, return_indices=argmax),
+        )
+        log(f"K1 maxpool {name} {list(shape)}, ties: exact with and without the argmax; "
+            f"timed {'with' if argmax else 'without'} it; {json.dumps(k1[name])}")
+        if not argmax:
+            continue
 
-            h, w = shape[1:3]
-            dy = torch.randn(y.shape, generator=gen, device="cuda").to(dt)
-            dx = maxpool_3x3s2_bwd(idx, dy, h, w)
-            want = maxpool_3x3s2_bwd_reference(idx, dy, h, w)
-            torch.cuda.synchronize()
-            if not torch.equal(dx, want):
-                raise AssertionError(f"K2 {name}: kernel differs from its plain version")
-            leaf = x.clone().requires_grad_(True)
-            out = maxpool_3x3s2(leaf)
-            if out.grad_fn is None:
-                raise AssertionError("K1 under grad: the output carries no grad_fn")
-            before = maxpool_3x3s2_bwd.launches
-            out.backward(dy)
-            if maxpool_3x3s2_bwd.launches != before + 1 or not torch.equal(leaf.grad, want):
-                raise AssertionError("K1 under grad: the backward did not go through K2")
-            _, lib_idx = F.max_pool2d(x_nchw, 3, 2, 1, return_indices=True)
-            dy_nchw = dy.permute(0, 3, 1, 2)
-            k2[name] = row(
-                (dx.float() - want.float()).abs().max().item(),
-                lambda: maxpool_3x3s2_bwd(idx, dy, h, w),
-                lambda: maxpool_3x3s2_bwd_reference(idx, dy, h, w),
-                nbytes(dy, idx, dx), 4 * dx.numel(), dt,
-                lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                    dy_nchw, x_nchw, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx),
-            )
-            log(f"K2 maxpool bwd {name} dy {list(dy.shape)} -> dx {list(shape)}: exact; "
-                f"{json.dumps(k2[name])}")
-            del x, y, y_only, idx, ref, ref_idx, dy, dx, want, leaf, out, lib_idx
+        h, w = shape[1:3]
+        dy = torch.randn(y.shape, generator=gen, device="cuda").to(dt)
+        dx = maxpool_3x3s2_bwd(idx, dy, h, w)
+        want = maxpool_3x3s2_bwd_reference(idx, dy, h, w)
+        torch.cuda.synchronize()
+        if not torch.equal(dx, want):
+            raise AssertionError(f"K2 {name}: kernel differs from its plain version")
+        leaf = x.clone().requires_grad_(True)
+        out = maxpool_3x3s2(leaf)
+        if out.grad_fn is None:
+            raise AssertionError("K1 under grad: the output carries no grad_fn")
+        before = maxpool_3x3s2_bwd.launches
+        out.backward(dy)
+        if maxpool_3x3s2_bwd.launches != before + 1 or not torch.equal(leaf.grad, want):
+            raise AssertionError("K1 under grad: the backward did not go through K2")
+        _, lib_idx = F.max_pool2d(x_nchw, 3, 2, 1, return_indices=True)
+        dy_nchw = dy.permute(0, 3, 1, 2)
+        k2[name] = row(
+            (dx.float() - want.float()).abs().max().item(),
+            lambda: maxpool_3x3s2_bwd(idx, dy, h, w),
+            lambda: maxpool_3x3s2_bwd_reference(idx, dy, h, w),
+            nbytes(dy, idx, dx), 4 * dx.numel(), dt,
+            lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                dy_nchw, x_nchw, [3, 3], [2, 2], [1, 1], [1, 1], False, lib_idx),
+        )
+        log(f"K2 maxpool bwd {name} dy {list(dy.shape)} -> dx {list(shape)}: exact; "
+            f"{json.dumps(k2[name])}")
+        del x, y, y_only, idx, ref, ref_idx, dy, dx, want, leaf, out, lib_idx
     return k1, k2
 
 
@@ -1360,7 +1418,7 @@ def dp_gloo2_child(out: str) -> None:
 def ego4d_dp(root: str, bert_path: str, vocab_path: str, work: str) -> dict:
     """``ego4d_train_dp``: `Workspace` with ``distributed_init=true`` in a process no
     launcher started, so it joins a world of 1 over NCCL itself, on the dataset of
-    phase 11 for `EGO4D_DP_STEPS` steps of `EGO4D_DP_CLIPS` clips with one eval and one
+    phase 12 for `EGO4D_DP_STEPS` steps of `EGO4D_DP_CLIPS` clips with one eval and one
     snapshot."""
     import contextlib
     import io
@@ -1408,14 +1466,244 @@ def ego4d_dp(root: str, bert_path: str, vocab_path: str, work: str) -> dict:
     return result
 
 
+def dp_conv_saved() -> dict:
+    """``dp_train_resnet50_conv_saved``, in the world of 1 over NCCL that ``ego4d_train_dp``
+    joined: the bf16 ResNet-50 step of ``dp_train_resnet50`` through the data-parallel code
+    with remat "none" and "conv_saved", one step each after one that compares the
+    generators: the collectives of the step (calls and bytes by kind, `TALLY`) are the
+    same, since the backward of conv_saved issues no BatchNorm all-reduce again; K1 and K2
+    once in the conv_saved step."""
+    from r3m_tpu_torch.models.distilbert import DistilBert
+    from r3m_tpu_torch.models.r3m import R3MConfig
+    from r3m_tpu_torch.parallel.collectives import read_tally, reset_tally
+    from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    torch.manual_seed(SEED)
+    bert = DistilBert().to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = train_batch(gen, TRAIN_CLIPS, 224, bert.cfg.vocab_size, LANG_LEN)
+    tallies = {}
+    for remat in ("none", "conv_saved"):
+        cfg = R3MConfig(size=50, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
+                        num_negatives=3, lr=1e-4, compute_dtype="bfloat16", image_size=224,
+                        remat=remat)
+        state = create_train_state(cfg, SEED)
+        step = make_train_step(cfg, bert, doaug="rctraj", mesh=True)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        reset_tally()
+        reset_counts()
+        state, metrics = step(state, batch)
+        loss = float(metrics["full_loss"])
+        tallies[remat] = read_tally()
+        launches = read_counts()
+        if not np.isfinite(loss):
+            raise AssertionError(f"dp_train_resnet50_conv_saved {remat}: loss {loss}")
+        del state, step
+    result = {"launches": launches, "collectives_per_step": tallies}
+    log(f"dp_train_resnet50_conv_saved: {json.dumps(result)}")
+    if tallies["conv_saved"] != tallies["none"]:
+        raise AssertionError(f"dp_train_resnet50_conv_saved: collectives {tallies}")
+    if launches != {"K1": 1, "K2": 1, "K3": 0, "K4": 0}:
+        raise AssertionError(f"dp_train_resnet50_conv_saved: launches {launches}")
+    return result
+
+
 def dp_world1_child(out: str, root: str, bert_path: str, vocab_path: str, work: str) -> None:
     """The world-1 data-parallel phases in one process that no launcher started (one CUDA
-    context and one NCCL communicator for both): ``ego4d_train_dp`` first, whose
-    `Workspace` joins the world itself, then ``dp_train_resnet50`` in it."""
+    context and one NCCL communicator for all): ``ego4d_train_dp`` first, whose
+    `Workspace` joins the world itself, then ``dp_train_resnet50`` and
+    ``dp_train_resnet50_conv_saved`` in it."""
     result = {"ego4d_train_dp": ego4d_dp(root, bert_path, vocab_path, work),
               "dp_train_resnet50": dp_train()}
+    torch.cuda.empty_cache()
+    result["dp_train_resnet50_conv_saved"] = dp_conv_saved()
     with open(out % 0, "w") as f:
         json.dump(result, f)
+
+
+def flat_grads(model: torch.nn.Module) -> torch.Tensor:
+    return torch.cat([p.grad.float().flatten() for p in model.parameters()])
+
+
+def flat_stats(state) -> torch.Tensor:
+    return torch.cat([v.float().flatten() for v in state.batch_stats.values()])
+
+
+def train_conv_saved(bert, gen) -> dict:
+    """``train_resnet50_conv_saved``: the bf16 ResNet-50 step of ``train_resnet50`` with
+    ``remat="conv_saved"``, timed in turns with the "none" step (none, conv_saved,
+    conv_saved, none; warm-up and timed steps each, one state a path): train frames/s and
+    peak device memory of both (the peak reset before each run), K1 and K2 once a
+    conv_saved step. Then from one state with fixed draws, one step of each in bf16 and in
+    f32: the loss, the gradients and the running statistics of conv_saved against "none"
+    (module constants `REMAT_*`); the statistics moved once."""
+    from r3m_tpu_torch.data.augment import sample_crop_params
+    from r3m_tpu_torch.losses import draw_permutations
+    from r3m_tpu_torch.models.r3m import R3MConfig, r3m_init
+    from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    base = R3MConfig(size=50, langweight=1.0, tcnweight=1.0, l1weight=1e-5, num_negatives=3,
+                     lr=1e-4, compute_dtype="bfloat16", image_size=224)
+    cfgs = {remat: dataclasses.replace(base, remat=remat) for remat in ("none", "conv_saved")}
+    batch = train_batch(gen, TRAIN_CLIPS, 224, bert.cfg.vocab_size, LANG_LEN)
+    steps = {k: make_train_step(c, bert, doaug="rctraj") for k, c in cfgs.items()}
+    states = {k: create_train_state(c, SEED) for k, c in cfgs.items()}
+    fps = {k: [] for k in cfgs}
+    memory = {k: [] for k in cfgs}
+    n = WARMUP_STEPS + TIMED_STEPS
+    for i, path in enumerate(("none", "conv_saved", "conv_saved", "none")):
+        state = states[path]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if i == 1:
+            reset_counts()
+        for j in range(n):
+            if j == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, metrics = steps[path](state, batch)
+        loss = float(metrics["full_loss"])  # waits for the steps
+        fps[path].append(TIMED_STEPS * TRAIN_BATCH / (time.perf_counter() - t0))
+        memory[path].append(torch.cuda.max_memory_allocated() / 1e9)
+        if i == 2:
+            launches = read_counts()
+        if not np.isfinite(loss):
+            raise AssertionError(f"train_resnet50_conv_saved {path}: loss {loss}")
+    if launches != {"K1": 2 * n, "K2": 2 * n, "K3": 0, "K4": 0}:
+        raise AssertionError(f"train_resnet50_conv_saved: launches {launches} in {2 * n} "
+                             "steps")
+    if not all(not torch.equal(v, s) for v, s in zip(
+            states["conv_saved"].batch_stats.values(), states["none"].batch_stats.values())):
+        raise AssertionError("train_resnet50_conv_saved: the two paths' statistics agree "
+                             "bit for bit after different steps")
+    del states, state
+    torch.cuda.empty_cache()
+
+    perms = draw_permutations(gen, TRAIN_CLIPS, base.num_negatives)
+    crops = sample_crop_params(gen, TRAIN_CLIPS, 224, 224)
+    model = r3m_init(base, SEED)
+    fixed = {}
+    for dtype in ("bfloat16", "float32"):
+        for remat, cfg in cfgs.items():
+            cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+            state = create_train_state(cfg, SEED, model=copy.deepcopy(model))
+            before = flat_stats(state)
+            state, metrics = make_train_step(cfg, bert, doaug="rctraj")(
+                state, batch, perms=perms, crops=crops)
+            fixed[dtype, remat] = (float(metrics["full_loss"]), flat_grads(state.model),
+                                   flat_stats(state), before)
+            del state
+    (l0, g0, s0, before), (l1, g1, s1, _) = (fixed["bfloat16", "none"],
+                                             fixed["bfloat16", "conv_saved"])
+    g32, g32_cs = fixed["float32", "none"][1], fixed["float32", "conv_saved"][1]
+    checks = {
+        "bf16_loss_rel_err": abs(l1 - l0) / abs(l0),
+        "bf16_grad_rel_l2": ((g1 - g0).norm() / g0.norm()).item(),
+        "bf16_none_grad_rel_l2_to_f32": ((g0 - g32).norm() / g32.norm()).item(),
+        "bf16_conv_saved_grad_rel_l2_to_f32": ((g1 - g32).norm() / g32.norm()).item(),
+        "bf16_grad_norm_rel_err": abs(g1.norm().item() - g0.norm().item()) / g0.norm().item(),
+        "f32_loss_rel_err": abs(fixed["float32", "conv_saved"][0] - fixed["float32", "none"][0])
+        / abs(fixed["float32", "none"][0]),
+        "f32_grad_rel_l2": ((g32_cs - g32).norm() / g32.norm()).item(),
+        "bf16_stats_share_of_update": ((s1 - s0).norm() / (s0 - before).norm()).item(),
+    }
+    result = {
+        "card": card(), "launches": launches, "steps": 2 * n, "clips": TRAIN_CLIPS,
+        "none_train_frames_per_s": fps["none"],
+        "conv_saved_train_frames_per_s": fps["conv_saved"],
+        "conv_saved_over_none": float(np.mean(fps["conv_saved"]) / np.mean(fps["none"])),
+        "max_memory_allocated_gb": memory,
+        "conv_saved_memory_over_none": float(np.mean(memory["conv_saved"])
+                                             / np.mean(memory["none"])),
+        "fixed_draws": checks,
+    }
+    log(f"train_resnet50_conv_saved: {json.dumps(result)}")
+    bad = [k for k, ok in (
+        ("bf16_loss_rel_err", checks["bf16_loss_rel_err"] <= DP_BF16_LOSS_RTOL),
+        ("bf16_conv_saved_grad_rel_l2_to_f32", checks["bf16_conv_saved_grad_rel_l2_to_f32"]
+         <= REMAT_BF16_GRAD_RATIO * checks["bf16_none_grad_rel_l2_to_f32"]),
+        ("bf16_grad_norm_rel_err", checks["bf16_grad_norm_rel_err"] <= REMAT_BF16_NORM_RTOL),
+        ("f32_loss_rel_err", checks["f32_loss_rel_err"] <= 1e-4),
+        ("f32_grad_rel_l2", checks["f32_grad_rel_l2"] <= REMAT_F32_GRAD_REL_L2),
+        ("bf16_stats_share_of_update", checks["bf16_stats_share_of_update"]
+         <= REMAT_STATS_SHARE),
+    ) if not ok]
+    if bad:
+        raise AssertionError(f"train_resnet50_conv_saved: {bad} out of bounds: {checks}")
+    return result
+
+
+def probe_phase(tmp: str) -> dict:
+    """``probe_delta_resnet50``: ``r3m_tpu_torch.probe_delta.main`` end to end on the card
+    (the reach world at 224 px, ResNet-50 at the README's settings for `PROBE_STEPS`
+    steps, three random inits, the step-0 and the trained snapshot scored on a held-out
+    set, caption contrast through `R3MRewardModel`): three rows with every metric finite,
+    K1 and K2 launched (K2 once a step). Then the BC probe on the trained snapshot's
+    embeddings, on the card and on the CPU from the same initial weights and minibatches:
+    curve and val_mse to `PROBE_BC_RTOL`."""
+    import r3m_tpu_torch
+    from r3m_tpu_torch import probe_delta
+    from r3m_tpu_torch.evalsuite.bc import _mlp_init, bc_probe
+
+    run = os.path.join(tmp, "probe_run")
+    args = ["--run", run, "--steps", str(PROBE_STEPS), "--bs", str(PROBE_CLIPS),
+            "--size", "50", "--videos", str(PROBE_VIDEOS), "--frames", str(PROBE_FRAMES),
+            "--probe-videos", str(PROBE_SET_VIDEOS), "--probe-frames", str(PROBE_SET_FRAMES),
+            "--workers", str(os.cpu_count())]
+    reset_counts()
+    t0 = time.perf_counter()
+    if probe_delta.main(args) != 0:
+        raise AssertionError("probe_delta_resnet50: main returned non-zero")
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    with open(os.path.join(run, "PROBE_DELTA.json")) as f:
+        res = json.load(f)
+    rows = res["rows"]
+    keys = [m for m in probe_delta.METRICS] + ["reward_order_acc", "lang_contrast_acc"]
+    finite = all(np.isfinite(r[k]) and np.isfinite(r[k + "_std"]) for r in rows for k in keys)
+    if not ([r["encoder"] for r in rows] == ["random_init(x3)", "step0_snapshot", "trained"]
+            and finite and res["probe_frames"] == PROBE_SET_VIDEOS * PROBE_SET_FRAMES):
+        raise AssertionError(f"probe_delta_resnet50: {json.dumps(res)}")
+    if not (launches["K2"] == PROBE_STEPS and launches["K1"] > PROBE_STEPS
+            and launches["K3"] == launches["K4"] == 0):
+        raise AssertionError(f"probe_delta_resnet50: launches {launches}")
+
+    with np.load(os.path.join(run, f"probe_set_{PROBE_SET_VIDEOS}x{PROBE_SET_FRAMES}_224.npz")) as z:
+        images, acts = z["images"], z["actions"]
+    enc = r3m_tpu_torch.load_r3m_from_snapshot(os.path.join(run, "snapshot.npz"))
+    emb = enc(images).cpu().numpy()
+    emb = (emb - emb.mean(0)) / (emb.std() + 1e-8)
+    n_train = emb.shape[0] - max(1, int(emb.shape[0] * 0.1))
+    gen = torch.Generator().manual_seed(SEED)
+    init = [{"w": layer.weight.detach().T.numpy(), "b": layer.bias.detach().numpy()}
+            for layer in _mlp_init([emb.shape[1], 256, 256, acts.shape[1]], gen, "cpu")]
+    idx = torch.randint(0, n_train, (PROBE_BC_STEPS, min(256, n_train)), generator=gen)
+    bc = {}
+    for device in ("cpu", "cuda"):
+        t = time.perf_counter()
+        bc[device] = bc_probe(lambda x: x, emb, acts, steps=PROBE_BC_STEPS, lr=1e-4,
+                              val_frac=0.1, device=device, init_params=init,
+                              batch_indices=idx)
+        bc[device]["seconds"] = time.perf_counter() - t
+    curve_err = float(np.max(np.abs(bc["cuda"]["train_mse_curve"]
+                                    / bc["cpu"]["train_mse_curve"] - 1)))
+    val_err = abs(bc["cuda"]["val_mse"] / bc["cpu"]["val_mse"] - 1)
+    result = {
+        "card": card(), "launches": launches, "wall_s": wall, "seconds": res["seconds"],
+        "train_frames_per_s": res["train_frames_per_s"], "steps": PROBE_STEPS,
+        "scored_snapshot_step": res["scored_snapshot_step"], "rows": rows,
+        "bc_card_vs_cpu": {"curve_max_rel_err": curve_err, "val_mse_rel_err": val_err,
+                           "val_mse": {d: bc[d]["val_mse"] for d in bc},
+                           "curve_ends": {d: bc[d]["train_mse_curve"][[0, -1]].tolist()
+                                          for d in bc},
+                           "cuda_s": bc["cuda"]["seconds"], "cpu_s": bc["cpu"]["seconds"]},
+    }
+    log(f"probe_delta_resnet50: {json.dumps(result)}")
+    if not (curve_err <= PROBE_BC_RTOL and val_err <= PROBE_BC_RTOL):
+        raise AssertionError(f"probe_delta_resnet50: the BC probe on the card is "
+                             f"{curve_err} / {val_err} from the CPU's")
+    return result
 
 
 def mesh_serving(tmp: str) -> dict:
@@ -1546,8 +1834,12 @@ def main() -> int:
         clock("snapshot_resume and reward_resnet50")
         del kept
         torch.cuda.empty_cache()
+        paths["train_resnet50_conv_saved"] = train_conv_saved(bert, gen)
+        clock("train_resnet50_conv_saved")
         paths["ego4d_train_resnet50"] = ego4d_train(bert, tmp, paths["train_resnet50"])
         clock("ego4d_train_resnet50")
+        paths["probe_delta_resnet50"] = probe_phase(tmp)
+        clock("probe_delta_resnet50")
         paths["dp_train_gloo2"] = run_child(dp_gloo2_child, world_size=2)
         paths["dp_train_gloo2"]["launches"] = {
             k: v + paths["dp_train_gloo2"]["ranks"][0]["launches"][k]
@@ -1560,7 +1852,7 @@ def main() -> int:
         bert_path, vocab_path = write_language(tmp, bert)
         paths.update(run_child(dp_world1_child, os.path.join(tmp, "ego4d"), bert_path,
                                vocab_path, os.path.join(tmp, "ego4d_dp_run"), launcher=False))
-        clock("ego4d_train_dp and dp_train_resnet50")
+        clock("ego4d_train_dp, dp_train_resnet50 and dp_train_resnet50_conv_saved")
         paths["train_vit_b32"] = train("vit_b32", 0, bert, gen)
         clock("train_vit_b32")
         paths["train_vit_b32_384"] = train("vit_b32_384", 0, bert, gen,

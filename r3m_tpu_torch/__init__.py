@@ -10,7 +10,8 @@ in [0, 255] to embeddings. Reference ``model.pt`` files load natively, and so do
 language-conditioned reward of a trained model (`R3MRewardModel`, with the WordPiece
 tokenizer and the frozen DistilBERT); `Workspace` (``python -m
 r3m_tpu_torch.train_representation``) trains on Ego4D-layout data end to end, with
-evaluation, snapshots and resume; and it has the CLIs ``python -m
+evaluation, snapshots and resume; `bc_probe` and ``python -m r3m_tpu_torch.probe_delta``
+score a frozen representation downstream; and it has the CLIs ``python -m
 r3m_tpu_torch.{embed,convert,prepare_language,verify_parity}``. The ResNet
 stem pool and the ViT attention, forward and backward, run hand-written CUDA kernels
 (``r3m_tpu_torch/csrc``), built at first use.
@@ -46,6 +47,7 @@ __all__ = [
     "R3MRewardModel",
     "VALID_ARGS",
     "Workspace",
+    "bc_probe",
     "cleanup_config",
     "load_r3m",
     "load_r3m_from_files",
@@ -59,8 +61,8 @@ __all__ = [
 
 
 def __getattr__(name: str):
-    """`R3MRewardModel` and `Workspace` are imported on first use, as in the JAX
-    package."""
+    """`R3MRewardModel`, `Workspace` and `bc_probe` are imported on first use, as in the
+    JAX package."""
     if name == "R3MRewardModel":
         from r3m_tpu_torch.reward import R3MRewardModel
 
@@ -69,6 +71,10 @@ def __getattr__(name: str):
         from r3m_tpu_torch.training.workspace import Workspace
 
         return Workspace
+    if name == "bc_probe":
+        from r3m_tpu_torch.evalsuite.bc import bc_probe
+
+        return bc_probe
     raise AttributeError(f"module 'r3m_tpu_torch' has no attribute {name!r}")
 
 

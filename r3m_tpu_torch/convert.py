@@ -6,7 +6,8 @@ batch stats) into that format: HWIO -> OIHW convolutions, BN scale/bias/mean/var
 weight/bias/running_mean/running_var, dense ``[in, out]`` -> Linear ``[out, in]``, and the
 HF ``ViTModel`` names for size 0. `model_from_jax` carries a JAX train state's params and
 batch stats into an `R3MModel`, and `distilbert_state_from_jax` the frozen DistilBERT
-pytree into HF ``DistilBertModel`` names (the inverse of the JAX ``convert_distilbert``).
+pytree into HF ``DistilBertModel`` names (the inverse of the JAX ``convert_distilbert``);
+`policy_params_from_jax` carries a JAX BC-probe policy.
 The other way, `canonical_path` names where each `R3MModel` tensor lives in the JAX
 package's canonical tree (unpacked BatchNorm, as its snapshots hold it) and how its layout
 changes, and `canonical_tree` builds that tree from named tensors: the port's copy of the
@@ -177,6 +178,20 @@ def model_from_jax(cfg: R3MConfig, params: Mapping, batch_stats: Mapping) -> R3M
     sd = state_dict_from_jax(params, batch_stats, cfg.size, data_parallel=False)
     model.load_state_dict(sd)
     return model
+
+
+def policy_params_from_jax(params) -> torch.nn.ModuleList:
+    """The JAX BC probe's policy (``[{"w": [in, out], "b": [out]}, ...]``, numpy leaves) as
+    the port's: an ``nn.ModuleList`` of ``nn.Linear`` on the CPU, ``weight = w.T``."""
+    layers = torch.nn.ModuleList()
+    for p in params:
+        w, b = _t(p["w"]), _t(p["b"])
+        layer = torch.nn.Linear(*w.shape, device="meta").to_empty(device="cpu")
+        with torch.no_grad():
+            layer.weight.copy_(w.T)
+            layer.bias.copy_(b)
+        layers.append(layer)
+    return layers
 
 
 # HF ViTModel module names under ``encoder.layer.{i}.`` -> the JAX layer's keys.

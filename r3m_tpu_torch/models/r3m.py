@@ -166,17 +166,15 @@ def r3m_embed(
     they are. ``train=True``: ResNet BatchNorm uses batch statistics and updates the
     running ones in place; the ViT has no BatchNorm and runs the same forward. With
     `bn_group` (the data-parallel step's process group) ResNet BatchNorm takes its batch
-    statistics over every rank's rows.
+    statistics over every rank's rows. ``cfg.remat="conv_saved"`` trains a ResNet with
+    fewer activations kept for the backward (`ResNet._forward_conv_saved`).
     """
-    if train and cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet; train with remat='none'"
-        )
     x = obs if prenormalized else _preprocess(cfg, obs)
     x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     if cfg.size == 0:
         return convnet(x, compute_dtype=cfg.torch_compute_dtype)
-    return convnet(x.to(cfg.torch_compute_dtype), train=train, bn_group=bn_group)
+    return convnet(x.to(cfg.torch_compute_dtype), train=train, bn_group=bn_group,
+                   remat=cfg.remat)
 
 
 def safe_l2_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -5,9 +5,11 @@
 reference's Identity and holds nothing), so a reference ``model.pt`` loads as it is. Its
 forward is the encoder in eval mode (``train=False``: BatchNorm reads the running
 statistics) or in train mode (``train=True``: batch statistics, running statistics
-updated in place). Serving folds BatchNorm into the convolutions once (`fold_batchnorm`)
-and runs `resnet_apply_folded`. Both run NCHW tensors in channels_last memory, so the
-stem pool (kernels K1 and K2, `r3m_tpu_torch.ops.pool`) reads physical NHWC.
+updated in place; with ``remat="conv_saved"`` the BatchNorm normalise and ReLUs are
+recomputed in the backward instead of kept). Serving folds BatchNorm into the
+convolutions once (`fold_batchnorm`) and runs `resnet_apply_folded`. Both run NCHW
+tensors in channels_last memory, so the stem pool (kernels K1 and K2,
+`r3m_tpu_torch.ops.pool`) reads physical NHWC.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from r3m_tpu_torch.ops.pool import maxpool_3x3s2
 
@@ -44,6 +51,7 @@ RESNET_SPECS: Dict[int, ResNetSpec] = {
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+REMAT_MODES = ("none", "conv_saved")
 
 
 def resnet_out_dim(size: int) -> int:
@@ -121,7 +129,8 @@ class ResNet(nn.Module):
         for stage in range(4):
             yield from getattr(self, f"layer{stage + 1}")
 
-    def forward(self, x: torch.Tensor, train: bool = False, bn_group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, bn_group=None,
+                remat: str = "none") -> torch.Tensor:
         """NCHW normalized images -> ``[B, out_dim]`` f32 features; convolutions run in
         x.dtype (weights cast to it, as ``resnet.py:92`` does).
 
@@ -130,8 +139,14 @@ class ResNet(nn.Module):
         ``resnet_apply(train=True)``: BatchNorm normalises with the batch statistics and
         updates the running statistics in place (`_bn_train`); with `bn_group` (a process
         group, the data-parallel step's) the statistics are those of every rank's rows
-        together (`_bn_train_synced`).
+        together (`_bn_train_synced`). ``remat="conv_saved"`` trains through
+        `_forward_conv_saved`, which keeps fewer activations for the backward; an unknown
+        mode raises ValueError.
         """
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}; expected one of {REMAT_MODES}")
+        if train and remat == "conv_saved":
+            return self._forward_conv_saved(x, bn_group)
         if not train:
             bn_fn = _bn_eval
         elif bn_group is None:
@@ -160,6 +175,151 @@ class ResNet(nn.Module):
                 h = conv_bn(h, blk.conv2, blk.bn2, 1, 1)
             y = F.relu(h + sc)
         return y.to(torch.float32).mean(dim=(2, 3))
+
+    def _forward_conv_saved(self, x: torch.Tensor, bn_group=None) -> torch.Tensor:
+        """The train forward with ``remat="conv_saved"``, the port of ``resnet_apply``'s
+        (``resnet.py:338-391``): the same function as ``remat="none"``, with fewer
+        activations kept for the backward.
+
+        What the backward keeps: each block's input, every convolution's output and each
+        BatchNorm's ``[C]`` batch moments. What it recomputes: every BatchNorm normalise,
+        ReLU and residual add inside a block, from those (the JAX policy's
+        ``save_only_these_names("conv_out", "bn_stat")``). The stem (conv1, bn1, ReLU and
+        the pool through kernels K1/K2) runs as in ``remat="none"``, outside any
+        checkpoint.
+
+        Each BatchNorm's moments (`_batch_moments`: per-channel sums of y and y² in f32,
+        all-reduced over `bn_group` where one is given) are taken outside any checkpoint,
+        and the running statistics are updated there, once. Between two convolutions of a
+        block, normalise + ReLU + the next convolution run under
+        `torch.utils.checkpoint.checkpoint` with a selective policy that saves the
+        convolution's output (`_remat`): the backward re-runs the normalise and the ReLU
+        (elementwise) to rebuild the convolution's input, and no reduction and no
+        collective. The normalise is the JAX form, ``y * inv + (bias - mean * inv)`` in
+        f32 with ``var = E[y²] - E[y]²``, so the loss and gradients agree with
+        ``remat="none"`` (torch's fused BatchNorm) to rounding, not bit for bit.
+        """
+        def bn_stem(y, bn):
+            if bn_group is None:
+                return _bn_train(y, bn)
+            return _bn_train_synced(y, bn, bn_group)
+
+        y = F.relu(bn_stem(_conv_in(x, self.conv1, 2, 3), self.bn1))
+        y = _pool(y)
+        for blk in self.blocks():
+            y = _block_conv_saved(blk, y, bn_group)
+        return y.to(torch.float32).mean(dim=(2, 3))
+
+
+def _conv_in(y: torch.Tensor, conv: nn.Conv2d, stride: int, padding: int) -> torch.Tensor:
+    return F.conv2d(y, conv.weight.to(y.dtype), None, stride, padding)
+
+
+class _Moments(torch.autograd.Function):
+    """Per-channel sums of y and y² over (N, H, W), in f32, as one ``[2C]`` vector. It
+    saves y alone (which its caller keeps anyway), where autograd of ``y.float()`` would
+    save an f32 copy; its backward is ``g_sum + 2 * g_sumsq * y``."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward(y)
+        yf = y.to(torch.float32)
+        return torch.cat([yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3))])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        c = y.shape[1]
+        g_sum, g_sumsq = grad[:c, None, None], grad[c:, None, None]
+        return torch.addcmul(g_sum, y.to(torch.float32), g_sumsq, value=2.0).to(y.dtype)
+
+
+def _batch_moments(y: torch.Tensor, bn: nn.BatchNorm2d, group) -> Tuple[torch.Tensor, ...]:
+    """The batch mean and biased variance of `y` over (N, H, W) — and over every rank of
+    `group` — as JAX computes them (``E[y²] - E[y]²`` in f32); the running statistics are
+    updated with them, once."""
+    from r3m_tpu_torch.parallel.collectives import all_reduce_sum
+
+    c = y.shape[1]
+    n = y.numel() // c
+    sums = _Moments.apply(y)
+    if group is not None:
+        n *= dist.get_world_size(group)
+        sums = all_reduce_sum(sums, group)
+    mean = sums[:c] / n
+    var = sums[c:] / n - mean * mean
+    _update_running_stats(bn, mean, var, n)
+    return mean, var
+
+
+def _normalize(y: torch.Tensor, mean, var, weight, bias) -> torch.Tensor:
+    """Train BatchNorm's affine map from given batch moments: f32 math, y.dtype out."""
+    inv = torch.rsqrt(var + BN_EPS) * weight.float()
+    shift = bias.float() - mean * inv
+    return torch.addcmul(shift[:, None, None], y.to(torch.float32),
+                         inv[:, None, None]).to(y.dtype)
+
+
+def _norm_relu_conv(y, mean, var, bn_weight, bn_bias, conv_weight, stride: int,
+                    padding: int):
+    h = F.relu(_normalize(y, mean, var, bn_weight, bn_bias))
+    return F.conv2d(h, conv_weight.to(h.dtype), None, stride, padding)
+
+
+def _tail(y, mean, var, bn_weight, bn_bias, *shortcut):
+    """A block's output, ``relu(bn(y) + shortcut)``: the shortcut is the block input, or
+    (with a downsample) its convolution's output, moments and BatchNorm parameters."""
+    sc = shortcut[0] if len(shortcut) == 1 else _normalize(*shortcut)
+    return F.relu(_normalize(y, mean, var, bn_weight, bn_bias) + sc)
+
+
+def _save_convolutions(ctx, func, *args, **kwargs):
+    if func is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, *args):
+    """`fn(*args)` under a selective checkpoint: convolution outputs are kept, every other
+    op of `fn` is recomputed in the backward."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(
+                          _save_convolutions))
+
+
+def _block_conv_saved(blk: _Block, x: torch.Tensor, group) -> torch.Tensor:
+    """One residual block under ``remat="conv_saved"`` (`ResNet._forward_conv_saved`)."""
+    if hasattr(blk, "conv3"):  # bottleneck: the stride sits on the 3x3
+        stride = blk.conv2.stride[0]
+        layers = [(blk.conv1, blk.bn1, 1, 0), (blk.conv2, blk.bn2, stride, 1),
+                  (blk.conv3, blk.bn3, 1, 0)]
+    else:
+        stride = blk.conv1.stride[0]
+        layers = [(blk.conv1, blk.bn1, stride, 1), (blk.conv2, blk.bn2, 1, 1)]
+    conv, bn, s, p = layers[0]
+    y = _conv_in(x, conv, s, p)
+    for conv, next_bn, s, p in layers[1:]:
+        mean, var = _batch_moments(y, bn, group)
+        y = _remat(_norm_relu_conv, y, mean, var, bn.weight, bn.bias, conv.weight, s, p)
+        bn = next_bn
+    mean, var = _batch_moments(y, bn, group)
+    if blk.downsample is None:
+        shortcut = (x,)
+    else:
+        ds_conv, ds_bn = blk.downsample
+        d = _conv_in(x, ds_conv, stride, 0)
+        shortcut = (d, *_batch_moments(d, ds_bn, group), ds_bn.weight, ds_bn.bias)
+    return _remat(_tail, y, mean, var, bn.weight, bn.bias, *shortcut)
+
+
+def _update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+                          n: int) -> None:
+    """Momentum 0.1 updates of the running mean and of the running variance, the latter
+    with the unbiased estimate over `n` values."""
+    with torch.no_grad():
+        bn.running_mean.mul_(1 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+        bn.running_var.mul_(1 - BN_MOMENTUM).add_(var * (n / max(n - 1, 1)),
+                                                   alpha=BN_MOMENTUM)
 
 
 def _bn_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -198,10 +358,7 @@ def _bn_train_synced(y: torch.Tensor, bn: nn.BatchNorm2d, group) -> torch.Tensor
     sums = all_reduce_sum(torch.cat([yf.sum(dim=dims), (yf * yf).sum(dim=dims)]), group)
     mean = sums[:c] / n
     var = sums[c:] / n - mean * mean
-    with torch.no_grad():
-        bn.running_mean.mul_(1 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
-        bn.running_var.mul_(1 - BN_MOMENTUM).add_(var * (n / max(n - 1, 1)),
-                                                   alpha=BN_MOMENTUM)
+    _update_running_stats(bn, mean, var, n)
     inv = torch.rsqrt(var + BN_EPS) * bn.weight.float()
     shift = bn.bias.float() - mean * inv
     return torch.addcmul(shift[:, None, None], yf, inv[:, None, None]).to(y.dtype)

@@ -2,6 +2,7 @@
 breakdown.
 
     python3 scripts/torch_train_profile.py [--steps 3] [--dtype bfloat16|float32]
+                                           [--remat none|conv_saved]
 
 For the ResNet-50 and ViT-B/32 steps in chip_smoke.py's configuration (64 clips of 5
 random uint8 frames at 224 px on the device, rctraj, language + TCN + L1/L2 losses, Adam
@@ -13,7 +14,9 @@ step (the union of kernel intervals in the profiled window), the device's busy s
 each window (that device time over the window's wall time), the device time per step of
 each kernel of the port and the device kernels that ran just before and just after it (a
 layout copy beside K1 or K2 would show there), and the top device operations by self
-time, as device kernels and as the operators that launched them. Needs one CUDA card.
+time, as device kernels and as the operators that launched them. With ``--remat
+conv_saved`` the ResNet-50 step alone, with its BatchNorm normalise and ReLUs recomputed
+in the backward. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    ap.add_argument("--remat", choices=("none", "conv_saved"), default="none")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -72,9 +76,12 @@ def main() -> int:
         "lang_mask": torch.ones(CLIPS, device="cuda"),
     }
     frames = CLIPS * 5
-    for size, name in ((50, "resnet50"), (0, "vit_b32")):
+    backbones = ((50, "resnet50"), (0, "vit_b32"))
+    if args.remat != "none":  # a ResNet-only lever
+        backbones = backbones[:1]
+    for size, name in backbones:
         cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
-                        compute_dtype=args.dtype)
+                        compute_dtype=args.dtype, remat=args.remat)
         state = create_train_state(cfg, SEED)
         step = make_train_step(cfg, bert, doaug="rctraj")
         for _ in range(2):
@@ -101,7 +108,8 @@ def main() -> int:
         on_device = [e for e in averages if e.device_type == DeviceType.CUDA]
         ops = [e for e in averages if e.device_type != DeviceType.CUDA]
         row = {
-            "cell": f"train/{name}/{'f32' if args.dtype == 'float32' else 'bf16'}",
+            "cell": (f"train/{name}/{'f32' if args.dtype == 'float32' else 'bf16'}"
+                     + ("" if args.remat == "none" else f"/{args.remat}")),
             "clips": CLIPS,
             "frames_per_step": frames,
             "ms_per_step_unprofiled": wall_unprofiled / args.steps,

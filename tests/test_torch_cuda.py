@@ -7,6 +7,7 @@ them each test skips. This file imports no JAX, so it runs on a machine without 
 """
 
 import copy
+import dataclasses
 import os
 
 import numpy as np
@@ -516,7 +517,7 @@ def test_embed_cli_on_the_card_matches_the_cpu(gen, tmp_path):
     np.testing.assert_allclose(got["embeddings"], want["embeddings"], rtol=1e-3, atol=1e-3)
 
 
-def _small_f32_step_inputs():
+def _small_f32_step_inputs(batch_seed=1):
     """A ResNet-18 at 32 px with a language head, a small frozen DistilBERT, a batch, its
     permutations and crops, all from fixed seeds."""
     cfg = R3MConfig(size=18, hidden_dim=64, langweight=1.0, image_size=32)
@@ -524,7 +525,7 @@ def _small_f32_step_inputs():
     bert = DistilBert(DistilBertConfig(vocab_size=100, n_layers=1, n_heads=4,
                                        hidden_dim=128, max_position_embeddings=16))
     model = r3m_init(cfg, 0)
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(batch_seed)
     batch = {"images": rng.integers(0, 256, (4, 5, 40, 48, 3), np.uint8),
              "token_ids": rng.integers(0, 100, (4, 12)),
              "attn_mask": np.ones((4, 12), np.int64), "lang_mask": np.ones(4, np.float32)}
@@ -723,12 +724,21 @@ def _one_step(device, cfg, bert, model, batch, perms, crops):
             {n: p.grad.cpu() for n, p in state.model.named_parameters()})
 
 
-def test_train_step_on_the_card_matches_the_cpu(gen):
+@pytest.mark.parametrize("remat,batch_seed", [("none", 1), ("conv_saved", 5)])
+def test_train_step_on_the_card_matches_the_cpu(gen, remat, batch_seed):
     """The same f32 ResNet-18 step from the same state, batch, permutations and crops on
     the card and on the CPU: the loss to rtol 1e-4, each gradient leaf to relative L2 error
     1e-3 (what is left is the order of f32 sums). The step sets its own precision (true
-    f32), so the caller sets no flag."""
-    inputs = _small_f32_step_inputs()
+    f32), so the caller sets no flag. With ``remat="conv_saved"`` too (its selective
+    checkpoint keeps cuDNN's convolution outputs), on the batch of seed 5. A ReLU input
+    within rounding of 0 moves the leaves upstream of it by 1e-3 to 8e-3 between any two
+    summation orders, and about half of the seeds 1-10 have one somewhere, for either
+    remat: on the card, seed 1's and 2's conv_saved gradients are within 7e-5 of the
+    "none" step's, seed 1's CPU conv_saved step flips one (2.6e-3 from the CPU "none"
+    step), and seed 2 flips one between card and CPU for both modes (4.6e-3). Seeds 5, 6
+    and 7 have none: card against CPU 1.5e-5 for both modes."""
+    cfg, *inputs = _small_f32_step_inputs(batch_seed)
+    inputs = (dataclasses.replace(cfg, remat=remat), *inputs)
     out = {device: _one_step(device, *inputs) for device in ("cpu", "cuda")}
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     for name, want in out["cpu"][1].items():
@@ -736,6 +746,25 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
         floor = 1e-4 * max(g.norm().item() for g in out["cpu"][1].values())
         err = (got - want).norm().item() / max(want.norm().item(), floor)
         assert err <= 1e-3, f"{name}: relative L2 error {err}"
+
+
+def test_bc_probe_on_the_card_matches_the_cpu(gen):
+    """The BC probe's policy trains on the card in true f32: from the same seed (its draws
+    come from a CPU generator, so both devices start from the same weights and take the
+    same minibatches) the train curve and the validation MSE agree with the CPU's to rtol
+    1e-4, the order of f32 sums over 200 Adam steps."""
+    from r3m_tpu_torch.evalsuite.bc import bc_probe
+
+    rng = np.random.default_rng(0)
+    emb = rng.normal(size=(300, 64)).astype(np.float32)
+    actions = np.tanh(emb[:, :2] - emb[:, 2:4]).astype(np.float32)
+    out = {device: bc_probe(lambda x: x, emb, actions, steps=200, lr=1e-4, seed=1,
+                            device=device)
+           for device in ("cpu", "cuda")}
+    assert out["cuda"]["policy_params"][0].weight.is_cuda
+    np.testing.assert_allclose(out["cuda"]["train_mse_curve"], out["cpu"]["train_mse_curve"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(out["cuda"]["val_mse"], out["cpu"]["val_mse"], rtol=1e-4)
 
 
 def test_f32_step_is_true_f32_whatever_the_callers_tf32_flags(gen):

@@ -257,14 +257,16 @@ def test_pad_batch_matches_jax(m, n):
 
 
 def test_package_exports_what_the_jax_package_exports():
-    """Every name of the JAX package's ``__all__`` but ``bc_probe`` (the BC probe is not
-    ported yet) resolves in the port, `R3MRewardModel` on first use."""
+    """Every name of the JAX package's ``__all__`` resolves in the port, `R3MRewardModel`
+    and `bc_probe` on first use; an unknown name raises AttributeError."""
     missing = set(r3m_tpu.__all__) - set(r3m_tpu_torch.__all__)
-    assert missing == {"bc_probe"}
+    assert missing == set()
     for name in r3m_tpu_torch.__all__:
         assert getattr(r3m_tpu_torch, name) is not None, name
+    from r3m_tpu_torch.evalsuite.bc import bc_probe
     from r3m_tpu_torch.reward import R3MRewardModel
 
     assert r3m_tpu_torch.R3MRewardModel is R3MRewardModel
+    assert r3m_tpu_torch.bc_probe is bc_probe
     with pytest.raises(AttributeError):
-        r3m_tpu_torch.bc_probe  # noqa: B018
+        r3m_tpu_torch.not_a_name  # noqa: B018

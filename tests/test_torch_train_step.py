@@ -235,7 +235,7 @@ def test_step_rejects_what_it_does_not_take(resnet):
         make_train_step(s.cfg, s.bert, doaug="flip", device="cpu")
     with pytest.raises(ValueError, match="bert"):
         make_train_step(s.cfg, None, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        cfg = dataclasses.replace(s.cfg, remat="conv_saved")
+    with pytest.raises(ValueError, match="remat"):
+        cfg = dataclasses.replace(s.cfg, remat="blocks")
         make_train_step(cfg, s.bert, doaug="rctraj", device="cpu")(
             create_train_state(cfg, 0, device="cpu"), _batch(np.random.default_rng(3)))
