@@ -1,14 +1,21 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
+    python3 chip_smoke.py --parent-attention OLD.cu   # also time another attention.cu
+
+With ``--parent-attention`` (a copy of an earlier ``r3m_tpu_torch/csrc/attention.cu``,
+e.g. from ``git show <commit>:r3m_tpu_torch/csrc/attention.cu``) that source is built
+beside the checkout's, and K4 at ViT-B/32's 384 px training shape and the 384 px
+training step run through both in turns: both K4 times, how far apart their outputs are,
+and both steps' train frames/s.
 
 Phases, in order; any failure ends the run with a non-zero exit and no result line:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every kernel of ``r3m_tpu_torch/csrc`` from the checkout's sources, and print
    what ``-Xptxas -v`` says of the maxpool, the bf16 and the f32 attention kernels
-   (registers, shared memory, spills); the maxpool and f32 attention kernels must neither
-   spill nor use a stack frame;
+   (registers, shared memory, spills); the maxpool and f32 attention kernels and the bf16
+   backward's one-block form past 128 tokens must neither spill nor use a stack frame;
 3. each kernel against its plain PyTorch version on the card, at the shapes the serving
    and training paths give it, f32 and bf16, with the times of the kernel, the plain
    version and one library call, and the bound:
@@ -16,11 +23,13 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    (its backward) exact; K3 (fused attention) and K4 (its recompute-P backward) to a
    stated atol and to a relative L2 error that tells whether they round where their
    plain versions do, K4 also against autograd of K3's plain forward, at ViT-B/32's
-   heads at 224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles), and
-   at T = 577 (768 px, correctness only); under grad a CUDA call carries a grad_fn and
-   its backward is the kernel; each row also gives the kernel's time over the library
-   call's (`library_ratio`), the bound over the kernel's time (`bound_share`) and the
-   bytes the function must move over the kernel's time (`gbytes_per_s`);
+   heads at 224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles; K4 in
+   bf16 one block a head walking its keys), and at T = 577 (768 px, correctness only),
+   with the form K4 took at each (`attention_bwd_path`); under grad a CUDA call carries
+   a grad_fn and its backward is the kernel; each row also gives the kernel's time over
+   the library call's (`library_ratio`), the bound over the kernel's time
+   (`bound_share`) and the bytes the function must move over the kernel's time
+   (`gbytes_per_s`);
 4. ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
    reference ``model.pt``), parity and fast: a few requests of 256 frames at 224 px and
    one of 240x320 frames; shapes, finiteness, fast-vs-parity cosine, agreement with the
@@ -119,6 +128,8 @@ own plain versions and its CPU path.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -165,7 +176,10 @@ MAIN_ROW = "train_bf16"  # this slice's main path: the bf16 pretraining step
 POOL_KERNELS = ("maxpool3x3s2_kernel", "maxpool3x3s2_bwd_kernel")
 BF16_ATTENTION_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel",
                           "attention_fwd_bf16_tiled_kernel", "attention_bwd_dq_bf16_kernel",
-                          "attention_bwd_dkdv_bf16_kernel")
+                          "attention_bwd_dkdv_bf16_kernel", "attention_bwd_bf16_head_kernel")
+# Of those, the kernels held to no spill and no stack frame: K4's one-block form past 128
+# tokens keeps one key chunk's scores a warp (the key-tiled kernels at D > 64 spill).
+BF16_NO_SPILL_KERNELS = ("attention_bwd_bf16_head_kernel",)
 F32_ATTENTION_KERNELS = ("attention_fwd_f32_kernel", "attention_bwd_f32_kernel",
                          "attention_fwd_f32_tiled_kernel", "attention_bwd_dq_f32_kernel",
                          "attention_bwd_dkdv_f32_kernel")
@@ -174,6 +188,7 @@ T_384 = 145
 SERVE_384_BATCH = 64
 TRAIN_384_CLIPS = 16
 TIMED_STEPS_384 = 3
+TIMED_STEPS_PARENT = 20  # each run of the 384 px step against a parent's attention.cu
 # Reward queries: 32 (start, current) pairs of 224 px frames against 32 sentences padded to
 # 32 tokens; a reward curve over a 50-frame trajectory; the embed CLI over 130 images.
 REWARD_PAIRS = 32
@@ -399,12 +414,60 @@ def check_pool(gen) -> tuple:
     return k1, k2
 
 
-def check_attention(gen) -> tuple:
+@contextlib.contextmanager
+def attention_library(lib):
+    """K3 and K4 run through `lib`, a library built from another ``attention.cu``, inside."""
+    from r3m_tpu_torch.ops import attention
+
+    saved = attention._lib
+    attention._lib = lambda: lib
+    try:
+        yield
+    finally:
+        attention._lib = saved
+
+
+def load_parent_attention(source: str):
+    """Build `source` (an earlier ``attention.cu``) with the port's flags into the build
+    directory and bind its C interface."""
+    import ctypes
+
+    from r3m_tpu_torch.ops import _build
+    from r3m_tpu_torch.ops.attention import bind
+
+    out = _build._hashed_path("attention_parent", source, _build.NVCC_FLAGS)
+    built = _build._compile({"attention_parent": (
+        out, lambda tmp: [_build._nvcc(), *_build.NVCC_FLAGS, "-o", tmp, source])})
+    return bind(ctypes.CDLL(built["attention_parent"][0]))
+
+
+def parent_turns(parent, q, k, v, do, h: int, grads) -> dict:
+    """K4 of the parent's ``attention.cu`` against this one on the same inputs: how far
+    apart their outputs are, and both timed in turns (parent, this, this, parent)."""
+    from r3m_tpu_torch.ops.attention import fused_attention_bwd
+
+    with attention_library(parent):
+        old = fused_attention_bwd(q, k, v, do, h)
+    torch.cuda.synchronize()
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(old, grads))
+    ms = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        with attention_library(parent) if who == "parent" else contextlib.nullcontext():
+            ms[who].append(time_ms(lambda: fused_attention_bwd(q, k, v, do, h)))
+    return {"parent_ms": ms["parent"], "this_ms": ms["this"],
+            "max_abs_diff_from_parent": diff,
+            "bit_equal_to_parent": all(torch.equal(a, b) for a, b in zip(old, grads))}
+
+
+def check_attention(gen, parent=None) -> tuple:
     """K3 at the serving and training shapes, K4 at the training shapes, of ViT-B/32 at
-    224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles), timed; then both
-    at T = 577 (768 px), correctness only. The bound is the function's own work, not the
-    key-tiled kernels' extra passes."""
+    224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles; K4 in bf16 one
+    block a head), timed; then both at T = 577 (768 px), correctness only. The bound is
+    the function's own work, not the kernels' extra passes. With `parent` (a bound
+    library of an earlier ``attention.cu``), K4 at the 384 px training shape in bf16 also
+    against the parent's, in turns."""
     from r3m_tpu_torch.ops.attention import (
+        attention_bwd_path,
         fused_attention,
         fused_attention_bwd,
         fused_attention_bwd_reference,
@@ -448,6 +511,8 @@ def check_attention(gen) -> tuple:
             if phase.startswith("serve"):
                 continue
 
+            path = attention_bwd_path(t, d, dt)
+            log(f"K4 {name} T={t} D={d}: the {path} form")
             grads = fused_attention_bwd(q, k, v, do, h)
             want = fused_attention_bwd_reference(q, k, v, do, h)
             leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -486,6 +551,9 @@ def check_attention(gen) -> tuple:
                 lambda: torch.autograd.grad(lib_out, lib_in, doh, retain_graph=True),
             )
             k4[name]["rel_l2_err"] = err_l2
+            k4[name]["path"] = path
+            if parent is not None and name == "train384_bf16":
+                k4[name]["against_parent"] = parent_turns(parent, q, k, v, do, h, grads)
             k4[name]["max_abs_err_vs_autograd"] = err_auto
             k4[name]["rel_l2_err_vs_autograd"] = err_l2_auto  # informative: no dU rounding
             log(f"K4 attention bwd {name} {[b, t, h * d]} H={h}: atol {ATTENTION_ATOL[dt]}, "
@@ -622,6 +690,30 @@ def check_gradients(name: str, model: torch.nn.Module) -> int:
     return sum(1 for _ in model.parameters())
 
 
+def train_setup(size: int, bert, gen, dtype: str, clips: int, image_size: int) -> tuple:
+    """The pretraining config, a fresh state, the step and one batch of `clips` clips."""
+    from r3m_tpu_torch.models.r3m import R3MConfig
+    from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
+                    num_negatives=3, lr=1e-4, compute_dtype=dtype, image_size=image_size)
+    return (cfg, create_train_state(cfg, SEED), make_train_step(cfg, bert, doaug="rctraj"),
+            train_batch(gen, clips, image_size, bert.cfg.vocab_size, LANG_LEN))
+
+
+def run_steps(step, state, batch, timed_steps: int) -> tuple:
+    """WARMUP_STEPS steps, then `timed_steps` timed ones on the same batch: the state,
+    the last metrics, every loss and the timed steps' seconds."""
+    losses = []
+    for i in range(WARMUP_STEPS + timed_steps):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["full_loss"]))  # waits for the step
+    return state, metrics, losses, time.perf_counter() - t0
+
+
 def train(name: str, size: int, bert, gen, dtype: str = "bfloat16",
           timed_steps: int = TIMED_STEPS, clips: int = TRAIN_CLIPS, image_size: int = 224,
           keep: bool = False):
@@ -631,27 +723,14 @@ def train(name: str, size: int, bert, gen, dtype: str = "bfloat16",
     ``(cfg, state, step, batch)``."""
     from r3m_tpu_torch.data.augment import sample_crop_params
     from r3m_tpu_torch.losses import draw_permutations
-    from r3m_tpu_torch.models.r3m import R3MConfig
-    from r3m_tpu_torch.training.trainer import create_train_state, make_train_step
 
-    cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
-                    num_negatives=3, lr=1e-4, compute_dtype=dtype, image_size=image_size)
-    state = create_train_state(cfg, SEED)
-    step = make_train_step(cfg, bert, doaug="rctraj")
-    batch = train_batch(gen, clips, image_size, bert.cfg.vocab_size, LANG_LEN)
+    cfg, state, step, batch = train_setup(size, bert, gen, dtype, clips, image_size)
     stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     reset_counts()
-    losses = []
-    for i in range(WARMUP_STEPS + timed_steps):
-        if i == WARMUP_STEPS:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["full_loss"]))  # waits for the step
-    elapsed = time.perf_counter() - t0
+    state, metrics, losses, elapsed = run_steps(step, state, batch, timed_steps)
     launches = read_counts()
     steps = WARMUP_STEPS + timed_steps
 
@@ -1763,6 +1842,10 @@ class PhaseClock:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
+    parser.add_argument("--parent-attention", metavar="ATTENTION_CU",
+                        help="an earlier attention.cu to time K4 and the 384 px step against")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
@@ -1787,11 +1870,18 @@ def main() -> int:
         log(f"ptxas, {what}:\n" + "\n".join(report))
         if not report or spills(report):
             raise AssertionError(f"{what}: ptxas reports {spills(report)}")
+    report = ptxas_report(built["attention"][1], BF16_NO_SPILL_KERNELS)
+    if not report or spills(report):
+        raise AssertionError(f"{BF16_NO_SPILL_KERNELS}: ptxas reports {spills(report)}")
+    parent = None
+    if args.parent_attention:
+        parent = load_parent_attention(os.path.abspath(args.parent_attention))
+        log(f"parent attention.cu {args.parent_attention} built")
 
     clock = PhaseClock()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_rows, k2_rows = check_pool(gen)
-    k3_rows, k4_rows = check_attention(gen)
+    k3_rows, k4_rows = check_attention(gen, parent)
     clock("kernel checks")
 
     torch.manual_seed(SEED)
@@ -1859,6 +1949,21 @@ def main() -> int:
                                            timed_steps=TIMED_STEPS_384,
                                            clips=TRAIN_384_CLIPS, image_size=384)
         clock("train_vit_b32_384")
+        if parent is not None:  # timed only, in turns: parent, this, this, parent
+            fps = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                with attention_library(parent) if who == "parent" else contextlib.nullcontext():
+                    _, state, step, batch = train_setup(0, bert, gen, "bfloat16",
+                                                        TRAIN_384_CLIPS, 384)
+                    elapsed = run_steps(step, state, batch, TIMED_STEPS_PARENT)[3]
+                    fps[who].append(TIMED_STEPS_PARENT * TRAIN_384_CLIPS * FRAMES / elapsed)
+                    del state, step, batch
+            paths["train_vit_b32_384"]["against_parent"] = {
+                "timed_steps": TIMED_STEPS_PARENT, "parent_train_frames_per_s": fps["parent"],
+                "this_train_frames_per_s": fps["this"]}
+            log(f"train_vit_b32_384 against the parent's attention.cu: "
+                f"{json.dumps(paths['train_vit_b32_384']['against_parent'])}")
+            clock("train_vit_b32_384 against the parent")
         # The f32 step sets its own precision (true f32), whatever torch's TF32 flags say.
         paths["train_vit_b32_f32"], kept = train("vit_b32_f32", 0, bert, gen, "float32",
                                                  TIMED_STEPS_F32, keep=True)

@@ -63,6 +63,11 @@ def _ensure_fixture(run: str, args) -> None:
     language-reward loss needs on this fixture. It is written as the JAX package's
     ``bert.npz`` (pytree and ``bert_config`` metadata). Its weights are not the JAX
     script's (``distilbert_init(PRNGKey(9))``): a JAX key cannot drive torch's generator.
+    A ``bert.npz`` already in ``--run`` is kept, so the JAX draw, saved there with the JAX
+    package's ``save_snapshot`` as its script does, makes the two probes comparable: on
+    the same snapshots they give the same reward-order and caption-contrast accuracies
+    (``tests/test_torch_probe_delta.py``, at its small settings: 0.806 and 0.889 reward
+    order for the step-0 and trained snapshots, 0.0 caption contrast, in both).
     """
     import dataclasses
 

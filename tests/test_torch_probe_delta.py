@@ -6,11 +6,16 @@ the README's settings and the frozen random DistilBERT, and the three encoders a
 `PROBE_DELTA.json` carries the JAX script's keys and three rows with finite metrics, the
 caption contrast included; ``--skip-train`` rescores from the cached probe set and the
 snapshots and gives the same rows; the ``bert.npz`` it wrote loads in the JAX package's
-`load_bert_params` and in the port's `load_bert` to the same tensors.
+`load_bert_params` and in the port's `load_bert` to the same tensors. With the JAX
+script's own DistilBERT draw in ``--run``, the port's ``--skip-train`` scores the same
+snapshots as the JAX script's to the same reward-order and caption-contrast accuracies.
 """
 
+import importlib.util
 import json
 import os
+import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -20,9 +25,11 @@ from r3m_tpu_torch import probe_delta
 from r3m_tpu_torch.convert import distilbert_tree
 from r3m_tpu_torch.models.distilbert import load_bert
 
-ARGS = ["--device", "cpu", "--steps", "3", "--bs", "4", "--size", "18", "--image-size", "32",
-        "--videos", "6", "--frames", "8", "--probe-videos", "6", "--probe-frames", "5",
-        "--workers", "1"]
+SIZES = ["--steps", "3", "--bs", "4", "--size", "18", "--image-size", "32", "--videos", "6",
+         "--frames", "8", "--probe-videos", "6", "--probe-frames", "5", "--workers", "1"]
+ARGS = ["--device", "cpu", *SIZES]
+_JAX_SCRIPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "scripts", "probe_delta.py")
 JAX_KEYS = {"steps", "scored_snapshot_step", "doaug", "size", "probe_frames", "rows"}
 ENCODERS = ["random_init(x3)", "step0_snapshot", "trained"]
 
@@ -90,3 +97,43 @@ def test_bert_npz_loads_in_both_packages(run):
     assert set(have) == set(want)
     for k, v in want.items():
         np.testing.assert_array_equal(have[k], v, err_msg=k)
+
+
+def test_jax_drawn_bert_makes_both_probes_agree(run, tmp_path, monkeypatch):
+    """One trained run, copied twice, with the JAX script's DistilBERT
+    (``distilbert_init(PRNGKey(9))``, saved as the JAX script saves it) in both copies:
+    the JAX script and the port, each with ``--skip-train``, score the same step-0 and
+    trained snapshots on the same cached probe set. Both accuracies are means over the
+    same items, so they are equal, but where two scores tie within f32 rounding: one
+    flipped item is allowed, one of 6 videos' 8-way caption picks (1/6) or one of the 6
+    ordered frame pairs of one of 6 videos (1/36). The random-init rows are
+    other draws in each package (JAX keys against torch seeds) and are not compared, nor
+    are the fitted probes (BC, linear), which `test_torch_evalsuite.py` holds to the JAX
+    package's: both CLIs run with `_metrics_for_split` stubbed, which keeps this short."""
+    import jax
+
+    from r3m_tpu.checkpoint import save_snapshot
+    from r3m_tpu.models.distilbert import distilbert_init
+
+    copies = {}
+    for name in ("port", "jax"):
+        copies[name] = str(tmp_path / name)
+        shutil.copytree(run, copies[name])
+        save_snapshot(os.path.join(copies[name], "bert.npz"),
+                      distilbert_init(jax.random.PRNGKey(9)))
+    spec = importlib.util.spec_from_file_location("jax_probe_delta", _JAX_SCRIPT)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    for module in (probe_delta, script):
+        monkeypatch.setattr(module, "_metrics_for_split",
+                            lambda *a, **k: dict.fromkeys(script.METRICS, 0.0))
+    assert probe_delta.main(["--run", copies["port"], "--skip-train", *ARGS]) == 0
+    monkeypatch.setattr(sys, "argv", [_JAX_SCRIPT, "--run", copies["jax"], "--skip-train",
+                                      *SIZES])
+    script.main()
+    port, jax_rows = (_result(copies[n])["rows"] for n in ("port", "jax"))
+    assert [r["encoder"] for r in jax_rows] == ENCODERS
+    for got, want in zip(port[1:], jax_rows[1:]):
+        for m, one_item in (("reward_order_acc", 1 / 36), ("lang_contrast_acc", 1 / 6)):
+            assert abs(got[m] - want[m]) <= one_item + 1e-12, (got["encoder"], m, got[m],
+                                                               want[m])
