@@ -5,9 +5,10 @@
 
 With ``--parent-attention`` (a copy of an earlier ``r3m_tpu_torch/csrc/attention.cu``,
 e.g. from ``git show <commit>:r3m_tpu_torch/csrc/attention.cu``) that source is built
-beside the checkout's, and K4 at ViT-B/32's 384 px training shape and the 384 px
-training step run through both in turns: both K4 times, how far apart their outputs are,
-and both steps' train frames/s.
+beside the checkout's, and K3 in bf16 at ViT-B/32's 384 px serving and training shapes,
+K4 at the training shape, the 384 px fast request and the 384 px training step run
+through both in turns: both kernels' times, how far apart their outputs are (and whether
+they are equal bit for bit), both requests' frames/s and both steps' train frames/s.
 
 Phases, in order; any failure ends the run with a non-zero exit and no result line:
 
@@ -23,9 +24,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    (its backward) exact; K3 (fused attention) and K4 (its recompute-P backward) to a
    stated atol and to a relative L2 error that tells whether they round where their
    plain versions do, K4 also against autograd of K3's plain forward, at ViT-B/32's
-   heads at 224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles; K4 in
+   heads at 224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles; in
    bf16 one block a head walking its keys), and at T = 577 (768 px, correctness only),
-   with the form K4 took at each (`attention_bwd_path`); under grad a CUDA call carries
+   with the form K3 and K4 took at each (`attention_fwd_path`, `attention_bwd_path`) and
+   the bf16 one-block forms' blocks an SM; under grad a CUDA call carries
    a grad_fn and its backward is the kernel; each row also gives the kernel's time over
    the library call's (`library_ratio`), the bound over the kernel's time
    (`bound_share`) and the bytes the function must move over the kernel's time
@@ -37,8 +39,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    ``model.pt`` through the embed CLI over 130 PNG files of 240x320 (batches of 64 and a
    tail of 2), parity and fast: frames/s of the whole CLI, the paths in order, K1 once a
    batch, parity against `R3MEncoder` on the same decoded arrays (cosine > 0.9999);
-5. ViT-B/32 serving, the same, with K3's launches; then ViT-B/32 at 384 px (T = 145),
-   one request of 64 frames; then mesh serving: ``load_r3m_from_files(...,
+5. ViT-B/32 serving, the same, with K3's launches, and its fast-vs-parity cosine again
+   with the fast forward's attention through K3's plain version on the card (K3's share
+   of the bf16 path's distance from parity); then ViT-B/32 at 384 px (T = 145), one
+   request of 64 frames; then mesh serving: ``load_r3m_from_files(...,
    mesh=make_mesh(1))`` of ResNet-50 and ViT-B/32, parity and fast, a request of 256
    frames, bit-equal to the same encoder without a mesh (K1, K3 counted), and the embed
    CLI with ``--n-devices 1``, bit-equal to its output in 4;
@@ -176,10 +180,11 @@ MAIN_ROW = "train_bf16"  # this slice's main path: the bf16 pretraining step
 POOL_KERNELS = ("maxpool3x3s2_kernel", "maxpool3x3s2_bwd_kernel")
 BF16_ATTENTION_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel",
                           "attention_fwd_bf16_tiled_kernel", "attention_bwd_dq_bf16_kernel",
-                          "attention_bwd_dkdv_bf16_kernel", "attention_bwd_bf16_head_kernel")
-# Of those, the kernels held to no spill and no stack frame: K4's one-block form past 128
-# tokens keeps one key chunk's scores a warp (the key-tiled kernels at D > 64 spill).
-BF16_NO_SPILL_KERNELS = ("attention_bwd_bf16_head_kernel",)
+                          "attention_bwd_dkdv_bf16_kernel", "attention_fwd_bf16_head_kernel",
+                          "attention_bwd_bf16_head_kernel")
+# Of those, the kernels held to no spill and no stack frame: K3's and K4's one-block forms
+# past 128 tokens keep one key chunk's scores a warp (the key-tiled kernels at D > 64 spill).
+BF16_NO_SPILL_KERNELS = ("attention_fwd_bf16_head_kernel", "attention_bwd_bf16_head_kernel")
 F32_ATTENTION_KERNELS = ("attention_fwd_f32_kernel", "attention_bwd_f32_kernel",
                          "attention_fwd_f32_tiled_kernel", "attention_bwd_dq_f32_kernel",
                          "attention_bwd_dkdv_f32_kernel")
@@ -189,6 +194,7 @@ SERVE_384_BATCH = 64
 TRAIN_384_CLIPS = 16
 TIMED_STEPS_384 = 3
 TIMED_STEPS_PARENT = 20  # each run of the 384 px step against a parent's attention.cu
+SERVE_REQUESTS_PARENT = 10  # each run of the 384 px fast request against the parent's
 # Reward queries: 32 (start, current) pairs of 224 px frames against 32 sentences padded to
 # 32 tokens; a reward curve over a 50-frame trajectory; the embed CLI over 130 images.
 REWARD_PAIRS = 32
@@ -441,33 +447,36 @@ def load_parent_attention(source: str):
     return bind(ctypes.CDLL(built["attention_parent"][0]))
 
 
-def parent_turns(parent, q, k, v, do, h: int, grads) -> dict:
-    """K4 of the parent's ``attention.cu`` against this one on the same inputs: how far
-    apart their outputs are, and both timed in turns (parent, this, this, parent)."""
-    from r3m_tpu_torch.ops.attention import fused_attention_bwd
-
+def parent_turns(parent, launch, outs) -> dict:
+    """`launch()` (K3 or K4 on fixed inputs) through the parent's ``attention.cu`` against
+    this one, whose outputs are `outs`: how far apart they are, and both timed in turns
+    (parent, this, this, parent)."""
     with attention_library(parent):
-        old = fused_attention_bwd(q, k, v, do, h)
+        old = launch()
     torch.cuda.synchronize()
-    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(old, grads))
+    old, outs = (x if isinstance(x, tuple) else (x,) for x in (old, outs))
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(old, outs))
     ms = {"parent": [], "this": []}
     for who in ("parent", "this", "this", "parent"):
         with attention_library(parent) if who == "parent" else contextlib.nullcontext():
-            ms[who].append(time_ms(lambda: fused_attention_bwd(q, k, v, do, h)))
+            ms[who].append(time_ms(launch))
     return {"parent_ms": ms["parent"], "this_ms": ms["this"],
             "max_abs_diff_from_parent": diff,
-            "bit_equal_to_parent": all(torch.equal(a, b) for a, b in zip(old, grads))}
+            "bit_equal_to_parent": all(torch.equal(a, b) for a, b in zip(old, outs))}
 
 
 def check_attention(gen, parent=None) -> tuple:
     """K3 at the serving and training shapes, K4 at the training shapes, of ViT-B/32 at
-    224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles; K4 in bf16 one
-    block a head), timed; then both at T = 577 (768 px), correctness only. The bound is
-    the function's own work, not the kernels' extra passes. With `parent` (a bound
-    library of an earlier ``attention.cu``), K4 at the 384 px training shape in bf16 also
-    against the parent's, in turns."""
+    224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles; in bf16 one block
+    a head), timed, with the form each took and, for the bf16 one-block forms past 128
+    tokens, their blocks an SM; then both at T = 577 (768 px), correctness only. The bound
+    is the function's own work, not the kernels' extra passes. With `parent` (a bound
+    library of an earlier ``attention.cu``), K3 at both 384 px shapes and K4 at the 384 px
+    training shape in bf16 also against the parent's, in turns."""
     from r3m_tpu_torch.ops.attention import (
+        _lib,
         attention_bwd_path,
+        attention_fwd_path,
         fused_attention,
         fused_attention_bwd,
         fused_attention_bwd_reference,
@@ -505,6 +514,12 @@ def check_attention(gen, parent=None) -> tuple:
                                nbytes(q, k, v, o), flops, dt,
                                lambda: F.scaled_dot_product_attention(qh, kh, vh))
                 k3[name]["rel_l2_err"] = err_l2
+                k3[name]["path"] = attention_fwd_path(t, d, dt)
+                if k3[name]["path"] == "head":
+                    k3[name]["blocks_per_sm"] = _lib().r3m_attention_head_blocks_per_sm(t, d, 0)
+                if parent is not None and dt == torch.bfloat16 and t == T_384:
+                    k3[name]["against_parent"] = parent_turns(
+                        parent, lambda: fused_attention_fwd(q, k, v, h), o)
             log(f"K3 attention {name} {[b, t, h * d]} H={h}: max abs error {err} (atol "
                 f"{ATTENTION_ATOL[dt]}), relative L2 {err_l2} ({ATTENTION_REL_L2[dt]}); "
                 f"{json.dumps(k3.get(name))}")
@@ -552,8 +567,11 @@ def check_attention(gen, parent=None) -> tuple:
             )
             k4[name]["rel_l2_err"] = err_l2
             k4[name]["path"] = path
+            if path == "head":
+                k4[name]["blocks_per_sm"] = _lib().r3m_attention_head_blocks_per_sm(t, d, 1)
             if parent is not None and name == "train384_bf16":
-                k4[name]["against_parent"] = parent_turns(parent, q, k, v, do, h, grads)
+                k4[name]["against_parent"] = parent_turns(
+                    parent, lambda: fused_attention_bwd(q, k, v, do, h), grads)
             k4[name]["max_abs_err_vs_autograd"] = err_auto
             k4[name]["rel_l2_err_vs_autograd"] = err_l2_auto  # informative: no dU rounding
             log(f"K4 attention bwd {name} {[b, t, h * d]} H={h}: atol {ATTENTION_ATOL[dt]}, "
@@ -653,6 +671,70 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
     }
     log(f"{name} serving: {json.dumps(result)}")
     return result
+
+
+@contextlib.contextmanager
+def vit_plain_attention():
+    """The ViT's attention call goes to K3's plain version, `fused_attention_reference`, on
+    the same CUDA tensors, inside. Only the diagnostic below enters it: no path does."""
+    from r3m_tpu_torch.models import vit
+    from r3m_tpu_torch.ops.attention import fused_attention_reference
+
+    saved = vit.fused_attention
+    vit.fused_attention = fused_attention_reference
+    try:
+        yield
+    finally:
+        vit.fused_attention = saved
+
+
+def fast_cosine_split(path: str) -> dict:
+    """ViT-B/32's fast-vs-parity cosine on the card (the first request of `serve`, 256
+    frames at 224 px) with K3, as served, and again with the fast forward's attention
+    through its plain version on the same CUDA tensors: the share of the bf16 path's
+    distance from parity that K3 holds, against that of the rest of the bf16 forward
+    (cuBLAS's bf16 GEMMs, the bf16 residual stream). Parity runs K3 in f32 both times."""
+    import r3m_tpu_torch
+
+    frames = np.random.default_rng(SEED).integers(0, 256, (SERVE_BATCH, 3, 224, 224),
+                                                  dtype=np.uint8)
+    parity = r3m_tpu_torch.load_r3m_from_files(path)(frames)
+    fast = r3m_tpu_torch.load_r3m_from_files(path, precision="fast")
+    with_k3 = fast(frames)
+    with vit_plain_attention():
+        plain = fast(frames)
+    if not all(torch.isfinite(e).all() for e in (parity, with_k3, plain)):
+        raise AssertionError("fast_cosine_split: non-finite embeddings")
+    result = {"fast_vs_parity_cosine_min_k3": float(cosine_rows(with_k3, parity).min()),
+              "fast_vs_parity_cosine_min_plain_attention": float(cosine_rows(plain,
+                                                                             parity).min()),
+              "k3_vs_plain_attention_cosine_min": float(cosine_rows(with_k3, plain).min())}
+    log(f"vit_b32 fast-vs-parity cosine, K3 against its plain version: {json.dumps(result)}")
+    return result
+
+
+def serve_against_parent(path: str, parent, batch: int, hw: int) -> dict:
+    """The fast request of `path` (`batch` frames of `hw` px) through the parent's
+    ``attention.cu`` and this one, timed in turns (parent, this, this, parent),
+    SERVE_REQUESTS_PARENT requests a turn after one unmeasured: frames/s of each, and
+    whether the two give the same embeddings bit for bit."""
+    import r3m_tpu_torch
+
+    frames = np.random.default_rng(SEED).integers(0, 256, (batch, 3, hw, hw), dtype=np.uint8)
+    enc = r3m_tpu_torch.load_r3m_from_files(path, precision="fast")
+    fps, last = {"parent": [], "this": []}, {}
+    for who in ("parent", "this", "this", "parent"):
+        with attention_library(parent) if who == "parent" else contextlib.nullcontext():
+            enc(frames)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SERVE_REQUESTS_PARENT):
+                last[who] = enc(frames)
+            torch.cuda.synchronize()
+            fps[who].append(SERVE_REQUESTS_PARENT * batch / (time.perf_counter() - t0))
+    return {"requests": SERVE_REQUESTS_PARENT, "parent_frames_per_s_fast": fps["parent"],
+            "this_frames_per_s_fast": fps["this"],
+            "bit_equal_to_parent": torch.equal(last["parent"], last["this"])}
 
 
 def train_batch(gen, clips: int, hw: int, vocab: int, tokens: int) -> dict:
@@ -1844,7 +1926,8 @@ class PhaseClock:
 def main() -> int:
     parser = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
     parser.add_argument("--parent-attention", metavar="ATTENTION_CU",
-                        help="an earlier attention.cu to time K4 and the 384 px step against")
+                        help="an earlier attention.cu to time K3, K4, the 384 px request "
+                             "and the 384 px step against")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1905,12 +1988,20 @@ def main() -> int:
         # fast paths land at cosine ~0.9999 against parity on the CPU, so the bound is
         # looser than the ResNet's.
         paths["serve_vit_b32"] = serve("vit_b32", ViT(), 768, "K3", 0.9995, tmp)
+        paths["serve_vit_b32"]["fast_cosine_split"] = fast_cosine_split(
+            os.path.join(tmp, "vit_b32.pt"))
         clock("serve_vit_b32")
-        # ViT-B/32 at 384 px: T = 145, K3 in key tiles
+        # ViT-B/32 at 384 px: T = 145, K3 in one block a head (bf16) or key tiles (f32)
         paths["serve_vit_b32_384"] = serve(
             "vit_b32_384", ViT(dataclasses.replace(B32, image_size=384)), 768, "K3", 0.9995,
             tmp, batch=SERVE_384_BATCH, requests=1, hw=384)
         clock("serve_vit_b32_384")
+        if parent is not None:
+            paths["serve_vit_b32_384"]["against_parent"] = serve_against_parent(
+                os.path.join(tmp, "vit_b32_384.pt"), parent, SERVE_384_BATCH, 384)
+            log(f"serve_vit_b32_384 against the parent's attention.cu: "
+                f"{json.dumps(paths['serve_vit_b32_384']['against_parent'])}")
+            clock("serve_vit_b32_384 against the parent")
         paths["mesh_serving"] = mesh_serving(tmp)
         clock("mesh_serving")
 

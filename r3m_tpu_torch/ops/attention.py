@@ -11,9 +11,11 @@ the CUDA cores, every product tiled in 4 x 4 register blocks read as float4; it 
 whose tiles fit in shared memory. Both take any T: a head that fits in one block (T up to
 128 in bf16; in f32 as long as the backward's T x T tiles fit, T up to 124 at D = 64) is
 done by one block, a longer one in key tiles, with the softmax still exact (two passes
-over the keys: max and sum, then P). The bf16 backward keeps a head of up to 176 tokens at
-D <= 64 in one block too, walking its keys in K3's tiles (`attention_bwd_path` says which
-form a head takes). Both take 16-byte aligned tensors. The backward saves nothing but q, k
+over the keys: max and sum, then P). In bf16 both directions keep a head of up to 176
+tokens at D <= 64 in one block too (ViT-B/32 at 384 px: T = 145), walking its keys in
+chunks of 64 with the key-tiled kernels' arithmetic, so the result is theirs bit for bit
+(`attention_fwd_path` and `attention_bwd_path` say which form a head takes; they agree at
+every shape). Both take 16-byte aligned tensors. The backward saves nothing but q, k
 and v and recomputes P. The source says more.
 
 Numerics, as in the TPU kernels: scores and softmax in f32, P cast to V's dtype before the
@@ -109,9 +111,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.r3m_attention_takes.restype = ctypes.c_int
     lib.r3m_attention_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 5
     lib.r3m_attention_bwd_workspace_bytes.restype = ctypes.c_size_t
-    if hasattr(lib, "r3m_attention_bwd_path"):  # an older attention.cu has no path query
-        lib.r3m_attention_bwd_path.argtypes = [ctypes.c_int] * 3
-        lib.r3m_attention_bwd_path.restype = ctypes.c_int
+    # an older attention.cu has fewer of these queries
+    for query in ("r3m_attention_fwd_path", "r3m_attention_bwd_path",
+                  "r3m_attention_head_blocks_per_sm"):
+        if hasattr(lib, query):
+            getattr(lib, query).argtypes = [ctypes.c_int] * 3
+            getattr(lib, query).restype = ctypes.c_int
     return lib
 
 
@@ -120,18 +125,28 @@ def _lib():
     return bind(load("attention"))
 
 
-BWD_PATHS = {0: "block", 1: "head", 2: "tiles"}
+PATHS = {0: "block", 1: "head", 2: "tiles"}
+
+
+def _path(query, t: int, d: int, dtype: torch.dtype) -> str:
+    path = query(t, d, _DTYPES[dtype])
+    if path not in PATHS:
+        raise ValueError(f"the {dtype} attention kernels do not take T={t}, D={d}")
+    return PATHS[path]
+
+
+def attention_fwd_path(t: int, d: int, dtype: torch.dtype) -> str:
+    """The form K3 takes for heads of `t` tokens and width `d` on the card: "block" (one
+    block a head, T <= 128 in bf16), "head" (bf16 at 128 < T <= 176 and D <= 64: one
+    block a head walking its keys in chunks) or "tiles" (key-tiled blocks). Builds the
+    library; raises for what the kernels do not take."""
+    return _path(_lib().r3m_attention_fwd_path, t, d, dtype)
 
 
 def attention_bwd_path(t: int, d: int, dtype: torch.dtype) -> str:
-    """The form K4 takes for heads of `t` tokens and width `d` on the card: "block" (one
-    block a head, T <= 128 in bf16), "head" (bf16 at 128 < T <= 176 and D <= 64: one
-    block a head walking its keys in chunks) or "tiles" (two key-tiled kernels and a
-    workspace). Builds the library; raises for what the kernels do not take."""
-    path = _lib().r3m_attention_bwd_path(t, d, _DTYPES[dtype])
-    if path not in BWD_PATHS:
-        raise ValueError(f"the {dtype} attention kernels do not take T={t}, D={d}")
-    return BWD_PATHS[path]
+    """The form K4 takes, named as `attention_fwd_path` names K3's; the same at every
+    shape ("tiles" here is two key-tiled kernels and a workspace)."""
+    return _path(_lib().r3m_attention_bwd_path, t, d, dtype)
 
 
 def _check(name: str, n_heads: int, *xs: torch.Tensor) -> bool:

@@ -19,6 +19,7 @@ from r3m_tpu_torch.models.r3m import R3MConfig, R3MEncoder, r3m_init
 from r3m_tpu_torch.ops.attention import (
     _lib,
     attention_bwd_path,
+    attention_fwd_path,
     fused_attention,
     fused_attention_bwd,
     fused_attention_bwd_reference,
@@ -335,14 +336,64 @@ def test_bf16_attention_backward_gives_the_same_bits_twice(gen):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("t,d,dtype,path", [
+def test_bf16_attention_forward_gives_the_same_bits_twice(gen):
+    """K3 at ViT-B/32's 384 px head (one block a head walking its keys) has one owner for
+    every output element: two launches give the same bits."""
+    assert attention_fwd_path(145, 64, torch.bfloat16) == "head"
+    q, k, v = (torch.randn((8, 145, 2 * 64), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    first = fused_attention_fwd(q, k, v, 2)
+    second = fused_attention_fwd(q, k, v, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("t,path", [(50, "block"), (145, "head"), (177, "tiles")])
+def test_attention_forward_and_backward_share_rounded_probabilities(gen, t, path):
+    """K4 recomputes P and rounds it to bf16 (P~) for dV; it must be K3's P~ bit for bit,
+    in each form. With V one-hot over a block of 64 keys (V[j, c] = 1 where
+    j = c + 64 blk, every head), K3's output is exactly that block of P~: one bf16 term
+    summed in f32 and rounded back. With dO one-hot the same way over query rows, K4's dV
+    is exactly that block of P~^T. The two assemble the whole P~ of every head."""
+    b, h, d = 2, 2, 64
+    assert attention_fwd_path(t, d, torch.bfloat16) == path
+    assert attention_bwd_path(t, d, torch.bfloat16) == path
+    q, k, v = (torch.randn((b, t, h * d), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    p_fwd, p_bwd = (torch.full((b, t, h, t), float("nan"), device="cuda",
+                               dtype=torch.bfloat16) for _ in range(2))  # [b, query, h, key]
+    for j0 in range(0, t, d):
+        n = min(d, t - j0)
+        onehot = torch.zeros((t, d), device="cuda", dtype=torch.bfloat16)
+        onehot[j0 + torch.arange(n), torch.arange(n)] = 1
+        onehot = onehot.repeat(1, h).expand(b, t, h * d).contiguous()
+        o = fused_attention_fwd(q, k, onehot, h).view(b, t, h, d)
+        p_fwd[..., j0:j0 + n] = o[..., :n]  # o[., i, ., c] = P~[i, j0 + c]
+        dv = fused_attention_bwd(q, k, v, onehot, h)[2].view(b, t, h, d)
+        p_bwd[:, j0:j0 + n] = dv[..., :n].permute(0, 3, 2, 1)  # dv[., j, ., c] = P~[j0 + c, j]
+    torch.cuda.synchronize()
+    assert not p_fwd.isnan().any()
+    assert torch.equal(p_fwd, p_bwd)
+
+
+PATH_CASES = [
     (50, 64, torch.bfloat16, "block"), (128, 64, torch.bfloat16, "block"),
     (129, 64, torch.bfloat16, "head"), (145, 64, torch.bfloat16, "head"),
     (176, 64, torch.bfloat16, "head"), (176, 8, torch.bfloat16, "head"),
     (177, 64, torch.bfloat16, "tiles"), (145, 72, torch.bfloat16, "tiles"),
     (145, 128, torch.bfloat16, "tiles"), (577, 64, torch.bfloat16, "tiles"),
     (50, 64, torch.float32, "block"), (145, 64, torch.float32, "tiles"),
-])
+]
+
+
+@pytest.mark.parametrize("t,d,dtype,path", PATH_CASES)
+def test_attention_forward_takes_the_path_of_the_backward(gen, t, d, dtype, path):
+    """K3 takes the same form as K4 at every shape, so that K4's recomputed P is K3's
+    (the test above holds them to that bit for bit)."""
+    assert attention_fwd_path(t, d, dtype) == attention_bwd_path(t, d, dtype) == path
+
+
+@pytest.mark.parametrize("t,d,dtype,path", PATH_CASES)
 def test_attention_backward_takes_the_path_its_boundary_says(gen, t, d, dtype, path):
     """The bf16 backward keeps a head in one block up to T = 128, and up to 176 at
     D <= 64 walking its keys in chunks; past that it goes in key tiles, the only form

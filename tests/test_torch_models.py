@@ -203,6 +203,35 @@ def test_vit_forward_of_a_long_head_matches_jax(rng):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
+def test_vit_bf16_forward_of_a_long_head_matches_jax(rng):
+    """The same T = 145 forward in bf16, the port's (whose attention, on the card, is K3's
+    one-block-a-head kernel, held there to this plain version) against `vit_b32_apply` in
+    bf16 through the Pallas kernel (interpret mode). The two round the GEMMs' outputs and
+    the residual stream in bf16 at different places, so they are as far apart as each is
+    from its f32 forward. Measured on input seeds 0-9: relative L2 4.4e-3 to 5.4e-3
+    between them (4.4e-3 at this test's seed 0; each 4.9e-3 to 6.6e-3 from f32), max abs
+    at most 3.9e-3 (two bf16 steps of the tanh-bounded pooled output), cosine at least
+    0.99998. Held to relative L2 1e-2, max abs 1e-2 and cosine 0.9999."""
+    geometry = dict(SMALL_VIT, image_size=96, patch_size=8)
+    jcfg = jvit.ViTConfig(**geometry)
+    params = _np_tree(jvit.vit_b32_init(jax.random.PRNGKey(1), jcfg))
+    x = rng.normal(size=(2, 96, 96, 3)).astype(np.float32)
+    want = np.asarray(jvit.vit_b32_apply(
+        params, jnp.asarray(x), jcfg, compute_dtype=jnp.bfloat16,
+        fused_attn="batched", fused_attn_interpret=True,
+    ))
+    net = ViT(ViTConfig(**geometry))
+    sd = state_dict_from_jax({"convnet": params}, {}, 0, data_parallel=False)
+    net.load_state_dict(strip_prefix(sd, "convnet."))
+    with torch.inference_mode():
+        got = net(_nchw(x), compute_dtype=torch.bfloat16).numpy()
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape == (2, 64)
+    assert np.linalg.norm(got - want) <= 1e-2 * np.linalg.norm(want)
+    assert np.abs(got - want).max() <= 1e-2
+    cos = np.sum(got * want, -1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+    assert np.all(cos >= 0.9999), cos
+
+
 def test_vit_keys_and_config_inference_match_jax():
     """The port's ViT state dict is what the JAX exporter writes, and both packages
     read the same config back from it."""

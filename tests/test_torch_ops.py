@@ -176,6 +176,10 @@ def test_pool_wrapper_on_cpu_uses_the_plain_version(rng):
 # 16 and 64 and at the limit 128 (D=64), D at 8 and at the limit 128 (T=50).
 EDGE_SHAPES = ([(2, t, 2, 64) for t in (16, 17, 64, 65, 128)]
                + [(2, 50, 2, d) for d in (8, 128)])
+# Heads the bf16 kernels keep in one block past 128 tokens (128 < T <= 176 at D <= 64,
+# ViT-B/32 at 384 px: T = 145), in both directions: the plain versions the card holds
+# those kernels to, against the Pallas kernel at the same lengths.
+LONG_BF16_SHAPES = [(2, t, 2, 64) for t in (129, 145, 176)]
 # Where the f32 kernels' 4 x 4 micro-tiles end: T on either side of multiples of 4 (D=64),
 # and D not a multiple of 4 (the kernels' 4-byte load path).
 F32_EDGE_SHAPES = ([(2, t, 2, 64) for t in (1, 3, 4, 5, 9)]
@@ -193,7 +197,7 @@ def test_attention_reference_matches_pallas_kernel_f32(rng, b, t, h, d):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("b,t,h,d", [(3, 50, 4, 16), *EDGE_SHAPES])
+@pytest.mark.parametrize("b,t,h,d", [(3, 50, 4, 16), *EDGE_SHAPES, *LONG_BF16_SHAPES])
 def test_attention_reference_matches_pallas_kernel_bf16(rng, b, t, h, d):
     q, k, v = (rng.standard_normal((b, t, h * d), dtype=np.float32) for _ in range(3))
     want = np.asarray(jax_fused_attention(
@@ -235,7 +239,7 @@ def _rel_l2(got: torch.Tensor, want: np.ndarray) -> float:
     return float(np.linalg.norm(_np(got) - want) / np.linalg.norm(want))
 
 
-@pytest.mark.parametrize("b,t,h,d", [(3, 50, 4, 16), *EDGE_SHAPES])
+@pytest.mark.parametrize("b,t,h,d", [(3, 50, 4, 16), *EDGE_SHAPES, *LONG_BF16_SHAPES])
 def test_attention_backward_matches_pallas_kernel_bf16(rng, b, t, h, d):
     """In bf16 P is rounded for dV and dU for dQ/dK, in both packages; the sums' order
     differs, so elements agree to a few ulps of values of order 1 (atol 0.05), and each
