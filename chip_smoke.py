@@ -5,10 +5,11 @@
 
 With ``--parent-attention`` (a copy of an earlier ``r3m_tpu_torch/csrc/attention.cu``,
 e.g. from ``git show <commit>:r3m_tpu_torch/csrc/attention.cu``) that source is built
-beside the checkout's, and K3 in bf16 at ViT-B/32's 384 px serving and training shapes,
-K4 at the training shape, the 384 px fast request and the 384 px training step run
-through both in turns: both kernels' times, how far apart their outputs are (and whether
-they are equal bit for bit), both requests' frames/s and both steps' train frames/s.
+beside the checkout's, and K3 in bf16 and f32 at ViT-B/32's 384 px serving and training
+shapes, K4 at the training shape, the 384 px request in fast and parity precision and the
+384 px training step in bf16 and f32 run through both in turns: both kernels' times, how
+far apart their outputs are (and whether they are equal bit for bit), both requests'
+frames/s and both steps' train frames/s.
 
 Phases, in order; any failure ends the run with a non-zero exit and no result line:
 
@@ -24,10 +25,11 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    (its backward) exact; K3 (fused attention) and K4 (its recompute-P backward) to a
    stated atol and to a relative L2 error that tells whether they round where their
    plain versions do, K4 also against autograd of K3's plain forward, at ViT-B/32's
-   heads at 224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles; in
-   bf16 one block a head walking its keys), and at T = 577 (768 px, correctness only),
-   with the form K3 and K4 took at each (`attention_fwd_path`, `attention_bwd_path`) and
-   the bf16 one-block forms' blocks an SM; under grad a CUDA call carries
+   heads at 224 px (T = 50, one block a head) and at 384 px (T = 145, the head form: one
+   block a head walking its keys in bf16, its query rows in f32), and at T = 577 (768 px,
+   key tiles, correctness only), with the form K3 and K4 took at each
+   (`attention_fwd_path`, `attention_bwd_path`) and the head forms' blocks an SM
+   (`attention_head_blocks_per_sm`); under grad a CUDA call carries
    a grad_fn and its backward is the kernel; each row also gives the kernel's time over
    the library call's (`library_ratio`), the bound over the kernel's time
    (`bound_share`) and the bytes the function must move over the kernel's time
@@ -57,11 +59,13 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    fresh state of another seed; the next step of both, crops and negatives fixed, gives
    the same loss, through K1 and K2; save and load seconds, the snapshot's bytes;
 8. the ViT-B/32 pretraining step, the same as 6, with 12 launches of K3 and of K4 a step;
-   then at 384 px, 16 clips, 3 timed steps;
+   then at 384 px, 16 clips, 3 timed steps, in bf16 (``train_vit_b32_384``) and in f32
+   (``train_vit_b32_384_f32``: K3 and K4 in the f32 head form);
 9. the ViT-B/32 pretraining step in f32, the same but for 5 timed steps, with no TF32
-   flag set by this script (the step runs in true f32 itself): the f32 K3 and K4 at full
-   width, 12 launches of each a step; then that state saved and served through
-   ``load_r3m_from_snapshot`` in fast precision, against the live model in parity;
+   flag set by this script (the step runs in true f32 itself, as the 384 px f32 step of
+   8 does): the f32 K3 and K4 at full width, 12 launches of each a step; then that state
+   saved and served through ``load_r3m_from_snapshot`` in fast precision, against the
+   live model in parity;
 10. reward scoring (`R3MRewardModel`): the ResNet-50 state of 6 saved as an ``.npz`` with a
    base-geometry DistilBERT (``distilbert.npz`` with ``bert_config`` metadata, the training
    phases' frozen encoder) and a vocab, scored in parity and fast precision: 32 (start,
@@ -185,10 +189,12 @@ BF16_ATTENTION_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kerne
 # Of those, the kernels held to no spill and no stack frame: K3's and K4's one-block forms
 # past 128 tokens keep one key chunk's scores a warp (the key-tiled kernels at D > 64 spill).
 BF16_NO_SPILL_KERNELS = ("attention_fwd_bf16_head_kernel", "attention_bwd_bf16_head_kernel")
+# All held to no spill and no stack frame, the head form's past 124 tokens among them.
 F32_ATTENTION_KERNELS = ("attention_fwd_f32_kernel", "attention_bwd_f32_kernel",
                          "attention_fwd_f32_tiled_kernel", "attention_bwd_dq_f32_kernel",
-                         "attention_bwd_dkdv_f32_kernel")
-# ViT-B/32 at 384 px: 12 x 12 patches and the class token, more than one block holds.
+                         "attention_bwd_dkdv_f32_kernel", "attention_fwd_f32_head_kernel",
+                         "attention_bwd_f32_head_kernel")
+# ViT-B/32 at 384 px: 12 x 12 patches and the class token, more than one block holds whole.
 T_384 = 145
 SERVE_384_BATCH = 64
 TRAIN_384_CLIPS = 16
@@ -467,16 +473,16 @@ def parent_turns(parent, launch, outs) -> dict:
 
 def check_attention(gen, parent=None) -> tuple:
     """K3 at the serving and training shapes, K4 at the training shapes, of ViT-B/32 at
-    224 px (T = 50, one block a head) and at 384 px (T = 145, key tiles; in bf16 one block
-    a head), timed, with the form each took and, for the bf16 one-block forms past 128
-    tokens, their blocks an SM; then both at T = 577 (768 px), correctness only. The bound
-    is the function's own work, not the kernels' extra passes. With `parent` (a bound
-    library of an earlier ``attention.cu``), K3 at both 384 px shapes and K4 at the 384 px
-    training shape in bf16 also against the parent's, in turns."""
+    224 px (T = 50, one block a head) and at 384 px (T = 145, the head form), timed, with
+    the form each took and, for the head forms, their blocks an SM; then both at T = 577
+    (768 px, key tiles), correctness only. The bound is the function's own work, not the
+    kernels' extra passes. With `parent` (a bound library of an earlier ``attention.cu``),
+    K3 at both 384 px shapes and K4 at the 384 px training shape, in bf16 and f32, also
+    against the parent's, in turns."""
     from r3m_tpu_torch.ops.attention import (
-        _lib,
         attention_bwd_path,
         attention_fwd_path,
+        attention_head_blocks_per_sm,
         fused_attention,
         fused_attention_bwd,
         fused_attention_bwd_reference,
@@ -516,8 +522,8 @@ def check_attention(gen, parent=None) -> tuple:
                 k3[name]["rel_l2_err"] = err_l2
                 k3[name]["path"] = attention_fwd_path(t, d, dt)
                 if k3[name]["path"] == "head":
-                    k3[name]["blocks_per_sm"] = _lib().r3m_attention_head_blocks_per_sm(t, d, 0)
-                if parent is not None and dt == torch.bfloat16 and t == T_384:
+                    k3[name]["blocks_per_sm"] = attention_head_blocks_per_sm(t, d, dt, False)
+                if parent is not None and t == T_384:
                     k3[name]["against_parent"] = parent_turns(
                         parent, lambda: fused_attention_fwd(q, k, v, h), o)
             log(f"K3 attention {name} {[b, t, h * d]} H={h}: max abs error {err} (atol "
@@ -568,8 +574,8 @@ def check_attention(gen, parent=None) -> tuple:
             k4[name]["rel_l2_err"] = err_l2
             k4[name]["path"] = path
             if path == "head":
-                k4[name]["blocks_per_sm"] = _lib().r3m_attention_head_blocks_per_sm(t, d, 1)
-            if parent is not None and name == "train384_bf16":
+                k4[name]["blocks_per_sm"] = attention_head_blocks_per_sm(t, d, dt, True)
+            if parent is not None and phase == "train384":
                 k4[name]["against_parent"] = parent_turns(
                     parent, lambda: fused_attention_bwd(q, k, v, do, h), grads)
             k4[name]["max_abs_err_vs_autograd"] = err_auto
@@ -625,8 +631,9 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
     odd = rng.integers(0, 256, (64, 3, 240, 320), dtype=np.uint8)
 
     reset_counts()
-    out, fps = {}, {}
+    out, fps, by_precision = {}, {}, {}
     for precision in ("parity", "fast"):
+        before = read_counts()[kernel]
         enc = r3m_tpu_torch.load_r3m_from_files(path, precision=precision)
         first = enc(frames[0])  # warms cuDNN's algorithm choice
         torch.cuda.synchronize()
@@ -642,10 +649,12 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{name} {precision}: non-finite embeddings")
         out[precision] = (first, e_odd)
+        by_precision[precision] = read_counts()[kernel] - before
         del enc
     launches = read_counts()
-    if launches[kernel] == 0:
-        raise AssertionError(f"{name}: the serving path never launched {kernel}")
+    if not all(by_precision.values()):
+        raise AssertionError(f"{name}: a precision's serving path never launched {kernel}: "
+                             f"{by_precision}")
 
     cos = min(cosine_rows(out["fast"][i], out["parity"][i]).min() for i in (0, 1))
     if not cos >= min_cosine:
@@ -663,6 +672,7 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
         )
     result = {
         "launches": launches,
+        f"{kernel}_launches_by_precision": by_precision,
         "requests": 2 * (1 + len(frames) + 1),
         "frames_per_s_parity": fps["parity"],
         "frames_per_s_fast": fps["fast"],
@@ -714,27 +724,49 @@ def fast_cosine_split(path: str) -> dict:
 
 
 def serve_against_parent(path: str, parent, batch: int, hw: int) -> dict:
-    """The fast request of `path` (`batch` frames of `hw` px) through the parent's
-    ``attention.cu`` and this one, timed in turns (parent, this, this, parent),
-    SERVE_REQUESTS_PARENT requests a turn after one unmeasured: frames/s of each, and
-    whether the two give the same embeddings bit for bit."""
+    """The fast and the parity request of `path` (`batch` frames of `hw` px) through the
+    parent's ``attention.cu`` and this one, timed in turns (parent, this, this, parent),
+    SERVE_REQUESTS_PARENT requests a turn after one unmeasured: frames/s of each, whether
+    the two give the same embeddings bit for bit, and how far apart they are."""
     import r3m_tpu_torch
 
     frames = np.random.default_rng(SEED).integers(0, 256, (batch, 3, hw, hw), dtype=np.uint8)
-    enc = r3m_tpu_torch.load_r3m_from_files(path, precision="fast")
-    fps, last = {"parent": [], "this": []}, {}
+    result = {"requests": SERVE_REQUESTS_PARENT}
+    for precision in ("fast", "parity"):
+        enc = r3m_tpu_torch.load_r3m_from_files(path, precision=precision)
+        fps, last = {"parent": [], "this": []}, {}
+        for who in ("parent", "this", "this", "parent"):
+            with attention_library(parent) if who == "parent" else contextlib.nullcontext():
+                enc(frames)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SERVE_REQUESTS_PARENT):
+                    last[who] = enc(frames)
+                torch.cuda.synchronize()
+                fps[who].append(SERVE_REQUESTS_PARENT * batch / (time.perf_counter() - t0))
+        result[precision] = {
+            "parent_frames_per_s": fps["parent"], "this_frames_per_s": fps["this"],
+            "bit_equal_to_parent": torch.equal(last["parent"], last["this"]),
+            "max_abs_diff_from_parent": (last["parent"] - last["this"]).abs().max().item(),
+            "cosine_min_to_parent": float(cosine_rows(last["parent"], last["this"]).min())}
+        del enc
+    return result
+
+
+def train_against_parent(bert, gen, parent, dtype: str) -> dict:
+    """The 384 px step in `dtype` through the parent's ``attention.cu`` and this one, timed
+    only, in turns (parent, this, this, parent), TIMED_STEPS_PARENT steps a turn after the
+    warm-up: the train frames/s of each."""
+    fps = {"parent": [], "this": []}
     for who in ("parent", "this", "this", "parent"):
         with attention_library(parent) if who == "parent" else contextlib.nullcontext():
-            enc(frames)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(SERVE_REQUESTS_PARENT):
-                last[who] = enc(frames)
-            torch.cuda.synchronize()
-            fps[who].append(SERVE_REQUESTS_PARENT * batch / (time.perf_counter() - t0))
-    return {"requests": SERVE_REQUESTS_PARENT, "parent_frames_per_s_fast": fps["parent"],
-            "this_frames_per_s_fast": fps["this"],
-            "bit_equal_to_parent": torch.equal(last["parent"], last["this"])}
+            _, state, step, batch = train_setup(0, bert, gen, dtype, TRAIN_384_CLIPS, 384)
+            elapsed = run_steps(step, state, batch, TIMED_STEPS_PARENT)[3]
+            fps[who].append(TIMED_STEPS_PARENT * TRAIN_384_CLIPS * FRAMES / elapsed)
+            del state, step, batch
+    torch.cuda.empty_cache()
+    return {"timed_steps": TIMED_STEPS_PARENT, "parent_train_frames_per_s": fps["parent"],
+            "this_train_frames_per_s": fps["this"]}
 
 
 def train_batch(gen, clips: int, hw: int, vocab: int, tokens: int) -> dict:
@@ -1991,7 +2023,7 @@ def main() -> int:
         paths["serve_vit_b32"]["fast_cosine_split"] = fast_cosine_split(
             os.path.join(tmp, "vit_b32.pt"))
         clock("serve_vit_b32")
-        # ViT-B/32 at 384 px: T = 145, K3 in one block a head (bf16) or key tiles (f32)
+        # ViT-B/32 at 384 px: T = 145, K3 in its head form (bf16 fast, f32 parity)
         paths["serve_vit_b32_384"] = serve(
             "vit_b32_384", ViT(dataclasses.replace(B32, image_size=384)), 768, "K3", 0.9995,
             tmp, batch=SERVE_384_BATCH, requests=1, hw=384)
@@ -2040,21 +2072,18 @@ def main() -> int:
                                            timed_steps=TIMED_STEPS_384,
                                            clips=TRAIN_384_CLIPS, image_size=384)
         clock("train_vit_b32_384")
-        if parent is not None:  # timed only, in turns: parent, this, this, parent
-            fps = {"parent": [], "this": []}
-            for who in ("parent", "this", "this", "parent"):
-                with attention_library(parent) if who == "parent" else contextlib.nullcontext():
-                    _, state, step, batch = train_setup(0, bert, gen, "bfloat16",
-                                                        TRAIN_384_CLIPS, 384)
-                    elapsed = run_steps(step, state, batch, TIMED_STEPS_PARENT)[3]
-                    fps[who].append(TIMED_STEPS_PARENT * TRAIN_384_CLIPS * FRAMES / elapsed)
-                    del state, step, batch
-            paths["train_vit_b32_384"]["against_parent"] = {
-                "timed_steps": TIMED_STEPS_PARENT, "parent_train_frames_per_s": fps["parent"],
-                "this_train_frames_per_s": fps["this"]}
-            log(f"train_vit_b32_384 against the parent's attention.cu: "
-                f"{json.dumps(paths['train_vit_b32_384']['against_parent'])}")
-            clock("train_vit_b32_384 against the parent")
+        # The same in f32: K3 and K4 in the f32 head form, true f32 set by the step itself.
+        paths["train_vit_b32_384_f32"] = train("vit_b32_384_f32", 0, bert, gen, "float32",
+                                               timed_steps=TIMED_STEPS_384,
+                                               clips=TRAIN_384_CLIPS, image_size=384)
+        clock("train_vit_b32_384_f32")
+        if parent is not None:
+            for name, dtype in (("train_vit_b32_384", "bfloat16"),
+                                ("train_vit_b32_384_f32", "float32")):
+                paths[name]["against_parent"] = train_against_parent(bert, gen, parent, dtype)
+                log(f"{name} against the parent's attention.cu: "
+                    f"{json.dumps(paths[name]['against_parent'])}")
+            clock("train_vit_b32_384 and train_vit_b32_384_f32 against the parent")
         # The f32 step sets its own precision (true f32), whatever torch's TF32 flags say.
         paths["train_vit_b32_f32"], kept = train("vit_b32_f32", 0, bert, gen, "float32",
                                                  TIMED_STEPS_F32, keep=True)

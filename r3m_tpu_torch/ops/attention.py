@@ -5,18 +5,26 @@ Replaces the TPU kernel ``r3m_tpu/ops/attention.py`` (``_fwd_call`` and ``_bwd_c
 with their ``_kernel`` / ``_kernel_batched`` bodies, behind the custom-VJP
 ``fused_attention``), which the JAX ViT-B/32 forward runs in every layer. The Hopper
 kernels are in ``r3m_tpu_torch/csrc/attention.cu``: they read each head's slices straight
-out of the packed tensors and are bound by memory. bfloat16 runs on the tensor cores
-(``mma.sync``, D a multiple of 8 up to 128). float32 runs in true f32 (``fmaf``, no TF32) on
-the CUDA cores, every product tiled in 4 x 4 register blocks read as float4; it takes any D
-whose tiles fit in shared memory. Both take any T: a head that fits in one block (T up to
-128 in bf16; in f32 as long as the backward's T x T tiles fit, T up to 124 at D = 64) is
-done by one block, a longer one in key tiles, with the softmax still exact (two passes
-over the keys: max and sum, then P). In bf16 both directions keep a head of up to 176
-tokens at D <= 64 in one block too (ViT-B/32 at 384 px: T = 145), walking its keys in
-chunks of 64 with the key-tiled kernels' arithmetic, so the result is theirs bit for bit
-(`attention_fwd_path` and `attention_bwd_path` say which form a head takes; they agree at
-every shape). Both take 16-byte aligned tensors. The backward saves nothing but q, k
-and v and recomputes P. The source says more.
+out of the packed tensors. bfloat16 runs on the tensor cores (``mma.sync``, D a multiple of
+8 up to 128). float32 runs in true f32 (``fmaf``, no TF32) on the CUDA cores, every product
+tiled in 4 x 4 register blocks read as float4; it takes any D whose tiles fit in shared
+memory. Both take any T, in one of three forms (`attention_fwd_path` and
+`attention_bwd_path` say which a head takes; they agree at every shape):
+
+- "block": one block keeps the whole head (T up to 128 in bf16; in f32 as long as the
+  backward's T x T tiles fit, T up to 124 at D = 64);
+- "head": one block a head past that, up to 176 tokens at D <= 64 (ViT-B/32 at 384 px:
+  T = 145). In bf16 it walks its keys in chunks of 64 with the key-tiled kernels'
+  arithmetic, so the result is theirs bit for bit. In f32 it keeps the head's K and V and
+  walks the query rows in chunks of 32, each chunk's scores against every key taken once
+  and softmaxed over the whole row, as the Pallas kernel does over its whole T x D block
+  (the backward streams Q and dO a chunk at a time and keeps dK and dV in registers);
+- "tiles": key-tiled blocks, with the softmax still exact (two passes over the keys: max
+  and sum, then P); the backward is two kernels and a workspace.
+
+Both take 16-byte aligned tensors. The backward saves nothing but q, k and v and recomputes
+P, with the forward's arithmetic: K4's P is K3's bit for bit in every form. The source says
+more.
 
 Numerics, as in the TPU kernels: scores and softmax in f32, P cast to V's dtype before the
 product with V (and, in the backward, before dV), dU cast to q's dtype before dQ and dK,
@@ -112,10 +120,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.r3m_attention_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 5
     lib.r3m_attention_bwd_workspace_bytes.restype = ctypes.c_size_t
     # an older attention.cu has fewer of these queries
-    for query in ("r3m_attention_fwd_path", "r3m_attention_bwd_path",
-                  "r3m_attention_head_blocks_per_sm"):
+    for query, n_args in (("r3m_attention_fwd_path", 3), ("r3m_attention_bwd_path", 3),
+                          ("r3m_attention_head_blocks_per_sm", 4)):
         if hasattr(lib, query):
-            getattr(lib, query).argtypes = [ctypes.c_int] * 3
+            getattr(lib, query).argtypes = [ctypes.c_int] * n_args
             getattr(lib, query).restype = ctypes.c_int
     return lib
 
@@ -137,10 +145,18 @@ def _path(query, t: int, d: int, dtype: torch.dtype) -> str:
 
 def attention_fwd_path(t: int, d: int, dtype: torch.dtype) -> str:
     """The form K3 takes for heads of `t` tokens and width `d` on the card: "block" (one
-    block a head, T <= 128 in bf16), "head" (bf16 at 128 < T <= 176 and D <= 64: one
-    block a head walking its keys in chunks) or "tiles" (key-tiled blocks). Builds the
-    library; raises for what the kernels do not take."""
+    block a head: T <= 128 in bf16, T <= 124 at D = 64 in f32), "head" (past that up to
+    T = 176 at D <= 64: one block a head walking its keys, bf16, or its query rows, f32,
+    in chunks) or "tiles" (key-tiled blocks). Builds the library; raises for what the
+    kernels do not take."""
     return _path(_lib().r3m_attention_fwd_path, t, d, dtype)
+
+
+def attention_head_blocks_per_sm(t: int, d: int, dtype: torch.dtype, backward: bool) -> int:
+    """Blocks an SM of the "head" form's kernel of K3 (or K4, with `backward`) at `t`
+    tokens and width `d`, from the occupancy calculator; -1 where the head takes another
+    form. Needs the card."""
+    return _lib().r3m_attention_head_blocks_per_sm(t, d, int(backward), _DTYPES[dtype])
 
 
 def attention_bwd_path(t: int, d: int, dtype: torch.dtype) -> str:

@@ -20,6 +20,7 @@ from r3m_tpu_torch.ops.attention import (
     _lib,
     attention_bwd_path,
     attention_fwd_path,
+    attention_head_blocks_per_sm,
     fused_attention,
     fused_attention_bwd,
     fused_attention_bwd_reference,
@@ -68,19 +69,21 @@ EDGE_SHAPES = ([(16, t, 2, 64) for t in (1, 5, 15, 16, 17, 50, 64, 65, 127, 128,
                + [(16, t, 2, d) for t in (128, 129, 176, 177) for d in (8, 72, 128)]
                + [(16, t, 2, 64) for t in (160, 161, 176, 177)])
 # The f32 kernels' micro-tiles end at multiples of 4 rows and of 4 columns of D: T at D=64
-# on either side of those edges and of the longest head one block keeps (124: from 125 on,
-# forward and backward go in key tiles of 64), D at T=50 on either side of multiples of 4
-# and 8 (D % 4 != 0 takes the 4-byte load path), and D in key tiles (of up to 64 rows,
-# 32 at D=128, 16 at D=256).
-F32_EDGE_T = (1, 3, 4, 5, 7, 8, 9, 50, 63, 64, 65, 100, 124, 125)
+# on either side of those edges and of the longest head one block keeps whole (124: from
+# 125 to 176 forward and backward keep it in one block that walks the query rows in chunks
+# of 32, the "head" form; ViT-B/32 at 384 px is T = 145), D at T=50 on either side of
+# multiples of 4 and 8 (D % 4 != 0 takes the 4-byte load path), and D in key tiles (of up
+# to 64 rows, 32 at D=128, 16 at D=256).
+F32_EDGE_T = (1, 3, 4, 5, 7, 8, 9, 50, 63, 64, 65, 100, 124, 125, 145, 176)
 F32_EDGE_D = [(16, 50, 2, d) for d in (4, 6, 12, 32, 128)] + [
     (8, 145, 2, d) for d in (6, 12, 128, 256)]
 F32_EDGE_SHAPES = [(16, t, 2, 64) for t in (*F32_EDGE_T, 127, 128, 156, 157)] + F32_EDGE_D
 F32_EDGE_BWD_SHAPES = [(16, t, 2, 64) for t in F32_EDGE_T] + F32_EDGE_D
-# Heads longer than one block holds, in key tiles: 384 px (T=145), 448 px (197), 512 px
-# (257) and 768 px (577) ViTs among them; on both sides of the end of the bf16 backward's
-# one-block form (T = 176, D = 64) and at D = 8, 72 and 128.
-LONG_SHAPES = ([(8, t, 2, 64) for t in (129, 144, 145, 160, 170, 176, 177, 197, 257)]
+# Heads longer than one block holds whole, in the head form or in key tiles: 384 px
+# (T=145), 448 px (197), 512 px (257) and 768 px (577) ViTs among them; on both sides of
+# the ends of the head forms (f32 from T = 125, both dtypes to T = 176 at D = 64) and at
+# D = 8, 72 and 128.
+LONG_SHAPES = ([(8, t, 2, 64) for t in (125, 129, 144, 145, 160, 170, 176, 177, 197, 257)]
                + [(8, t, 2, d) for t in (129, 176, 177) for d in (8, 72, 128)]
                + [(2, 577, 2, 64)])
 
@@ -303,8 +306,9 @@ def test_f32_attention_backward_kernel_at_tile_edges(gen, b, t, h, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,d", LONG_SHAPES)
 def test_attention_kernels_take_long_heads(gen, dtype, b, t, h, d):
-    """K3 and K4 in key tiles against their plain versions, K4 also against autograd of
-    K3's plain forward, and K4 the same from run to run (no atomics)."""
+    """K3 and K4 past one whole block (the head form or key tiles) against their plain
+    versions, K4 also against autograd of K3's plain forward, and K4 the same from run to
+    run (no atomics)."""
     q, k, v, do = (torch.randn((b, t, h * d), generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
     fwd, bwd = fused_attention_fwd.launches, fused_attention_bwd.launches
@@ -336,6 +340,30 @@ def test_bf16_attention_backward_gives_the_same_bits_twice(gen):
         assert torch.equal(a, b)
 
 
+def test_f32_attention_gives_the_same_bits_twice(gen):
+    """K3 and K4 in f32 at ViT-B/32's 384 px head (one block a head walking its query rows
+    in chunks) have one owner for every output element and no atomics: two launches give
+    the same bits."""
+    assert attention_fwd_path(145, 64, torch.float32) == "head"
+    q, k, v, do = (torch.randn((8, 145, 2 * 64), generator=gen, device="cuda")
+                   for _ in range(4))
+    first = (fused_attention_fwd(q, k, v, 2), *fused_attention_bwd(q, k, v, do, 2))
+    second = (fused_attention_fwd(q, k, v, 2), *fused_attention_bwd(q, k, v, do, 2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_head_kernels_keep_their_blocks_an_sm(gen, dtype):
+    """At ViT-B/32's 384 px head the head form's K3 fits two blocks an SM and K4 one (its
+    K and V, and in bf16 Q and dO too, fill most of the shared memory); a head of another
+    form has no head kernel to ask about."""
+    assert attention_head_blocks_per_sm(145, 64, dtype, backward=False) == 2
+    assert attention_head_blocks_per_sm(145, 64, dtype, backward=True) == 1
+    assert attention_head_blocks_per_sm(50, 64, dtype, backward=True) == -1
+
+
 def test_bf16_attention_forward_gives_the_same_bits_twice(gen):
     """K3 at ViT-B/32's 384 px head (one block a head walking its keys) has one owner for
     every output element: two launches give the same bits."""
@@ -348,23 +376,26 @@ def test_bf16_attention_forward_gives_the_same_bits_twice(gen):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("t,path", [(50, "block"), (145, "head"), (177, "tiles")])
-def test_attention_forward_and_backward_share_rounded_probabilities(gen, t, path):
-    """K4 recomputes P and rounds it to bf16 (P~) for dV; it must be K3's P~ bit for bit,
-    in each form. With V one-hot over a block of 64 keys (V[j, c] = 1 where
-    j = c + 64 blk, every head), K3's output is exactly that block of P~: one bf16 term
-    summed in f32 and rounded back. With dO one-hot the same way over query rows, K4's dV
-    is exactly that block of P~^T. The two assemble the whole P~ of every head."""
+@pytest.mark.parametrize("dtype,t,path", [
+    (torch.bfloat16, 50, "block"), (torch.bfloat16, 145, "head"), (torch.bfloat16, 177, "tiles"),
+    (torch.float32, 145, "head")])
+def test_attention_forward_and_backward_share_rounded_probabilities(gen, dtype, t, path):
+    """K4 recomputes P and rounds it to V's dtype (P~; in f32 P itself) for dV; it must
+    be K3's P~ bit for bit, in each form. With V one-hot over a block of 64 keys
+    (V[j, c] = 1 where j = c + 64 blk, every head), K3's output is exactly that block of
+    P~: one term summed in f32 (and rounded back to bf16). With dO one-hot the same way
+    over query rows, K4's dV is exactly that block of P~^T. The two assemble the whole P~
+    of every head."""
     b, h, d = 2, 2, 64
-    assert attention_fwd_path(t, d, torch.bfloat16) == path
-    assert attention_bwd_path(t, d, torch.bfloat16) == path
-    q, k, v = (torch.randn((b, t, h * d), generator=gen, device="cuda").bfloat16()
+    assert attention_fwd_path(t, d, dtype) == path
+    assert attention_bwd_path(t, d, dtype) == path
+    q, k, v = (torch.randn((b, t, h * d), generator=gen, device="cuda").to(dtype)
                for _ in range(3))
-    p_fwd, p_bwd = (torch.full((b, t, h, t), float("nan"), device="cuda",
-                               dtype=torch.bfloat16) for _ in range(2))  # [b, query, h, key]
+    p_fwd, p_bwd = (torch.full((b, t, h, t), float("nan"), device="cuda", dtype=dtype)
+                    for _ in range(2))  # [b, query, h, key]
     for j0 in range(0, t, d):
         n = min(d, t - j0)
-        onehot = torch.zeros((t, d), device="cuda", dtype=torch.bfloat16)
+        onehot = torch.zeros((t, d), device="cuda", dtype=dtype)
         onehot[j0 + torch.arange(n), torch.arange(n)] = 1
         onehot = onehot.repeat(1, h).expand(b, t, h * d).contiguous()
         o = fused_attention_fwd(q, k, onehot, h).view(b, t, h, d)
@@ -382,7 +413,10 @@ PATH_CASES = [
     (176, 64, torch.bfloat16, "head"), (176, 8, torch.bfloat16, "head"),
     (177, 64, torch.bfloat16, "tiles"), (145, 72, torch.bfloat16, "tiles"),
     (145, 128, torch.bfloat16, "tiles"), (577, 64, torch.bfloat16, "tiles"),
-    (50, 64, torch.float32, "block"), (145, 64, torch.float32, "tiles"),
+    (50, 64, torch.float32, "block"), (124, 64, torch.float32, "block"),
+    (125, 64, torch.float32, "head"), (145, 64, torch.float32, "head"),
+    (176, 64, torch.float32, "head"), (177, 64, torch.float32, "tiles"),
+    (145, 72, torch.float32, "tiles"),
 ]
 
 
@@ -396,8 +430,9 @@ def test_attention_forward_takes_the_path_of_the_backward(gen, t, d, dtype, path
 @pytest.mark.parametrize("t,d,dtype,path", PATH_CASES)
 def test_attention_backward_takes_the_path_its_boundary_says(gen, t, d, dtype, path):
     """The bf16 backward keeps a head in one block up to T = 128, and up to 176 at
-    D <= 64 walking its keys in chunks; past that it goes in key tiles, the only form
-    that needs a workspace."""
+    D <= 64 walking its keys in chunks; the f32 backward keeps it whole up to T = 124 at
+    D = 64, and up to 176 at D <= 64 walking its query rows in chunks; past that both go
+    in key tiles, the only form that needs a workspace."""
     assert attention_bwd_path(t, d, dtype) == path
     work = _lib().r3m_attention_bwd_workspace_bytes(2, t, 3, d, 1 if dtype == torch.bfloat16
                                                     else 0)
@@ -442,9 +477,9 @@ def test_attention_gradient_goes_through_both_kernels(gen):
 
 
 def test_attention_kernel_rejects_a_head_too_long_for_shared_memory(gen):
-    """No head is too long now: f32 past what one block's shared memory holds (T=157
-    forward, 125 backward at D=64) and bf16 past its one-block tiles (T=129) go in key
-    tiles. What the kernels still refuse: bf16 D not a multiple of 8 or above 128, f32 D
+    """No head is too long now: f32 past what one block's shared memory holds whole
+    (T=125 and 157 at D=64: the head form) and bf16 past its one-block tiles (T=129) go in
+    a head form or key tiles. What the kernels still refuse: bf16 D not a multiple of 8 or above 128, f32 D
     whose tiles do not fit, and tensors that are not 16-byte aligned."""
     for t, dtype in ((157, torch.float32), (125, torch.float32), (129, torch.bfloat16)):
         q = torch.randn((1, t, 64), generator=gen, device="cuda").to(dtype)

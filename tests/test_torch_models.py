@@ -232,6 +232,53 @@ def test_vit_bf16_forward_of_a_long_head_matches_jax(rng):
     assert np.all(cos >= 0.9999), cos
 
 
+def _np_vit_params(rng, cfg):
+    """A ViT's parameters drawn from a numpy generator in the JAX package's tree: weights
+    N(0, 1/fan_in), so that the scores reach O(1) and each softmax row is far from
+    uniform (the pooler's a tenth of that, so its tanh stays off its rails), LayerNorm
+    scales 1 + 0.1 N(0, 1), biases 0.1 N(0, 1)."""
+    shapes = jax.eval_shape(lambda: jvit.vit_b32_init(jax.random.PRNGKey(0), cfg))
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name == "scale":
+            return (1.0 + 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        if leaf.ndim == 1 or name in ("bias", "b"):
+            return (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        gain = 0.1 if path[0].key == "pooler" else 1.0
+        fan_in = int(np.prod(leaf.shape[:-1]))
+        return (gain * rng.standard_normal(leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def test_vit_f32_forward_of_a_long_head_matches_jax(rng):
+    """The T = 145 forward in f32 (ViT-B/32 at 384 px has that many tokens; on the card its
+    attention is K3's f32 head kernel, held there to this plain version) from numpy-drawn
+    weights, through both packages: the JAX forward at HIGHEST precision through its
+    Pallas kernel (interpret mode). Both are true f32 and differ only in the order of
+    sums. Measured on seeds 0-9 (weights and input): relative L2 1.8e-7 to 2.8e-7, max
+    abs 7.5e-8 to 1.2e-7 of outputs up to ~0.3-0.45. Held to relative L2 2e-6 and max
+    abs 1e-6."""
+    geometry = dict(SMALL_VIT, image_size=96, patch_size=8)
+    jcfg = jvit.ViTConfig(**geometry)
+    params = _np_vit_params(rng, jcfg)
+    x = rng.normal(size=(2, 96, 96, 3)).astype(np.float32)
+    want = np.asarray(jvit.vit_b32_apply(
+        params, jnp.asarray(x), jcfg, precision=HIGHEST,
+        fused_attn="batched", fused_attn_interpret=True,
+    ))
+    net = ViT(ViTConfig(**geometry))
+    assert net.embeddings.position_embeddings.shape[1] == 145
+    sd = state_dict_from_jax({"convnet": params}, {}, 0, data_parallel=False)
+    net.load_state_dict(strip_prefix(sd, "convnet."))
+    with torch.inference_mode():
+        got = net(_nchw(x)).numpy()
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape == (2, 64)
+    assert np.linalg.norm(got - want) <= 2e-6 * np.linalg.norm(want)
+    assert np.abs(got - want).max() <= 1e-6
+
+
 def test_vit_keys_and_config_inference_match_jax():
     """The port's ViT state dict is what the JAX exporter writes, and both packages
     read the same config back from it."""

@@ -180,6 +180,10 @@ EDGE_SHAPES = ([(2, t, 2, 64) for t in (16, 17, 64, 65, 128)]
 # ViT-B/32 at 384 px: T = 145), in both directions: the plain versions the card holds
 # those kernels to, against the Pallas kernel at the same lengths.
 LONG_BF16_SHAPES = [(2, t, 2, 64) for t in (129, 145, 176)]
+# Heads the f32 kernels keep in one block walking the query rows in chunks of 32 (124 < T
+# <= 176 at D <= 64, ViT-B/32 at 384 px: T = 145), in both directions: their plain
+# versions, which the card holds them to, against the Pallas kernel past one block.
+LONG_F32_SHAPES = [(2, t, 2, 64) for t in (125, 129, 145, 176)]
 # Where the f32 kernels' 4 x 4 micro-tiles end: T on either side of multiples of 4 (D=64),
 # and D not a multiple of 4 (the kernels' 4-byte load path).
 F32_EDGE_SHAPES = ([(2, t, 2, 64) for t in (1, 3, 4, 5, 9)]
@@ -187,7 +191,7 @@ F32_EDGE_SHAPES = ([(2, t, 2, 64) for t in (1, 3, 4, 5, 9)]
 
 
 @pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8), (6, 7, 2, 16),
-                                     *EDGE_SHAPES, *F32_EDGE_SHAPES])
+                                     *EDGE_SHAPES, *F32_EDGE_SHAPES, *LONG_F32_SHAPES])
 def test_attention_reference_matches_pallas_kernel_f32(rng, b, t, h, d):
     q, k, v = (rng.standard_normal((b, t, h * d), dtype=np.float32) for _ in range(3))
     want = np.asarray(jax_fused_attention(
@@ -220,7 +224,7 @@ def _jax_attention_vjp(q, k, v, do, h):
 
 
 @pytest.mark.parametrize("b,t,h,d", [(4, 50, 12, 64), (2, 10, 3, 8), *EDGE_SHAPES,
-                                     *F32_EDGE_SHAPES])
+                                     *F32_EDGE_SHAPES, *LONG_F32_SHAPES])
 def test_attention_backward_matches_pallas_kernel_f32(rng, b, t, h, d):
     """K4's plain version, and the gradient through `fused_attention`, against the
     Pallas backward (interpret mode, the batched lowering the JAX trainer runs)."""
