@@ -37,7 +37,13 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
 4. ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
    reference ``model.pt``), parity and fast: a few requests of 256 frames at 224 px and
    one of 240x320 frames; shapes, finiteness, fast-vs-parity cosine, agreement with the
-   CPU path on a small input, and K1's launches over the served requests. Then that
+   CPU path on a small input, and K1's launches over the served requests. Then
+   ``python -m r3m_tpu_torch.example`` through its `main` (``example_resnet50``), offline:
+   an empty ``$R3M_HOME`` and a fetch that fails at once, so it serves its random-init
+   ResNet-50 and prints ``[1, 2048]``; and one fast request of 256 frames to that encoder
+   traced with `utils/profiling.trace`, whose op profile (`op_profile_raw`) counts K1's
+   kernel as many times as K1's launch counter counted in the request (its top rows and
+   K1's share of the device time printed). Then that
    ``model.pt`` through the embed CLI over 130 PNG files of 240x320 (batches of 64 and a
    tail of 2), parity and fast: frames/s of the whole CLI, the paths in order, K1 once a
    batch, parity against `R3MEncoder` on the same decoded arrays (cosine > 0.9999);
@@ -680,6 +686,85 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
         "cuda_vs_cpu_cosine_min": float(cos_cpu),
     }
     log(f"{name} serving: {json.dumps(result)}")
+    return result
+
+
+EXAMPLE_TRACE_FRAMES = 256
+EXAMPLE_TOP_ROWS = 8
+
+
+def example_phase(tmp: str) -> dict:
+    """``python -m r3m_tpu_torch.example`` on the card, offline, then one traced fast
+    request of `EXAMPLE_TRACE_FRAMES` frames to its random-init encoder: the op profile of
+    the trace holds K1's kernel as often as K1's counter counted it in that request."""
+    import io
+
+    from r3m_tpu_torch import example, fetch
+    from r3m_tpu_torch.utils.profiling import op_profile_raw, op_profile_summary, trace
+
+    def offline(file_id, dest):
+        raise OSError("chip_smoke downloads nothing")
+
+    saved = os.environ.get("R3M_HOME"), fetch._drive_download
+    os.environ["R3M_HOME"] = os.path.join(tmp, "r3m_home")  # empty: nothing is cached
+    fetch._drive_download = offline
+    reset_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = example.main([])
+        torch.cuda.synchronize()
+    finally:
+        if saved[0] is None:
+            os.environ.pop("R3M_HOME")
+        else:
+            os.environ["R3M_HOME"] = saved[0]
+        fetch._drive_download = saved[1]
+    example_s = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    log("example: " + " | ".join(lines))
+    if rc != 0 or lines[-1] != "[1, 2048]" or not lines[0].endswith("using random init"):
+        raise AssertionError(f"example_resnet50: rc {rc}, printed {lines}")
+    if read_counts()["K1"] == 0:
+        raise AssertionError("example_resnet50: the example never launched K1")
+
+    enc = example.random_init_encoder("cuda", precision="fast")
+    frames = np.random.default_rng(SEED).integers(
+        0, 256, (EXAMPLE_TRACE_FRAMES, 3, 224, 224), dtype=np.uint8)
+    enc(frames[:8])  # folds the weights and warms cuDNN's algorithm choice
+    torch.cuda.synchronize()
+    log_dir = os.path.join(tmp, "example_trace")
+    before = read_counts()["K1"]
+    with trace(log_dir):
+        e = enc(frames)
+    traced_k1 = read_counts()["K1"] - before
+    if e.shape != (EXAMPLE_TRACE_FRAMES, 2048) or not torch.isfinite(e).all():
+        raise AssertionError(f"example_resnet50: traced request gave {tuple(e.shape)}")
+    rows, total_ps = op_profile_raw(log_dir)
+    pool = [r for r in rows if POOL_KERNELS[0] in r[4]]
+    if traced_k1 != 1 or sum(r[3] for r in pool) != traced_k1:
+        raise AssertionError(
+            f"example_resnet50: K1 launched {traced_k1} times in the traced request, the "
+            f"op profile counts {[(r[3], r[4]) for r in pool]}")
+    top = [[frac, occ, name] for frac, _, _, occ, name in
+           op_profile_summary(log_dir, top=EXAMPLE_TOP_ROWS)]
+    k1_share = sum(r[0] for r in pool) / total_ps
+    log(f"example_resnet50 traced fast request, top rows (share, occurrences, kernel): "
+        f"{json.dumps(top)}; K1's share {k1_share}")
+    result = {
+        "launches": read_counts(),
+        "branch": "random init",
+        "example_seconds": example_s,
+        "traced_frames": EXAMPLE_TRACE_FRAMES,
+        "traced_k1_launches": traced_k1,
+        "profile_k1_occurrences": sum(r[3] for r in pool),
+        "profile_kernel_names": len(rows),
+        "profile_device_ms": total_ps / 1e9,
+        "k1_share": k1_share,
+        "k1_ms": sum(r[0] for r in pool) / 1e9,
+    }
+    log(f"example_resnet50: {json.dumps(result)}")
     return result
 
 
@@ -2013,6 +2098,8 @@ def main() -> int:
         paths["serve_resnet50"] = serve("resnet50", resnet, 2048, "K1", 0.9999, tmp)
         clock("serve_resnet50")
         del resnet
+        paths["example_resnet50"] = example_phase(tmp)
+        clock("example_resnet50")
         paths["embed_resnet50"] = embed_phase(os.path.join(tmp, "resnet50.pt"), tmp)
         clock("embed_resnet50")
         # ViT-B/32 in bf16 carries its residual stream in bf16 through 12 layers, as the

@@ -4,14 +4,17 @@ The port's copy of ``r3m_tpu/utils/config.py``: `load_config` reads a root YAML 
 repo's ``cfgs/config_rep.yaml``), applies strict ``key.path=value`` overrides (an unknown
 key raises, ``+key=value`` adds one), then resolves OmegaConf-style ``${key}`` /
 ``${now:fmt}`` interpolation against the root; `agent_to_r3m_config` maps the ``agent``
-node onto `R3MConfig`. The node's ``_target_`` names the JAX package's class; the port
-reads it as data and imports nothing it names.
+node onto `R3MConfig`. The ``agent`` node's ``_target_`` names the JAX package's class;
+`agent_to_r3m_config` reads it as data and imports nothing it names. `instantiate` is
+the Hydra-style ``_target_`` import-and-call, for nodes that name what the caller wants
+built.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import importlib
 import re
 from typing import Any, Dict, List, Optional
 
@@ -148,6 +151,15 @@ def _check_schedule(text: str) -> None:
         raise ValueError(f"not a number or an lr schedule: {text!r}")
     for a in args:
         float(a)
+
+
+def instantiate(node: Dict, **extra) -> Any:
+    """Import the callable that ``node["_target_"]`` names (``"package.module.attr"``) and
+    call it with the node's other keys, `extra` over them (r3m/__init__.py:71)."""
+    node = dict(node)
+    mod_name, _, attr = node.pop("_target_").rpartition(".")
+    node.update(extra)
+    return getattr(importlib.import_module(mod_name), attr)(**node)
 
 
 def agent_to_r3m_config(agent: Dict):

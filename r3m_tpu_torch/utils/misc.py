@@ -1,16 +1,19 @@
 """Host helpers, the port of ``r3m_tpu/utils/misc.py``'s: the learning-rate schedule grammar
 (the reference's ``schedule()``, utils.py:143-163), tail-batch padding, seeding
-(utils.py:34-39) and the training loop's step predicates and timer (utils.py:78-116)."""
+(utils.py:34-39), the training loop's step predicates and timer (utils.py:78-116), and the
+rest of the reference's ``utils.py``: `eval_mode` (:18-31), `soft_update_params` (:42-45),
+`orthogonal_init` (:52-61), `accuracy` (:63-76) and `truncated_normal` (:119-140)."""
 
 from __future__ import annotations
 
 import random
 import re
 import time
-from typing import Callable, Union
+from typing import Callable, List, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def set_seed_everywhere(seed: int) -> int:
@@ -65,6 +68,74 @@ class Timer:
 
     def total_time(self) -> float:
         return time.time() - self._start_time
+
+
+class eval_mode:
+    """Context manager: each module given is in eval mode inside, and every submodule gets
+    its own training flag back on exit (utils.py:18-31). Objects that are not modules pass
+    through untouched."""
+
+    def __init__(self, *models):
+        self.models = models
+
+    def __enter__(self):
+        modules = [model for model in self.models if isinstance(model, nn.Module)]
+        self._flags = [(m, m.training) for model in modules for m in model.modules()]
+        for model in modules:
+            model.train(False)
+        return self
+
+    def __exit__(self, *args):
+        for m, training in self._flags:
+            m.training = training
+        return False
+
+
+def soft_update_params(net_params, target_params, tau: float):
+    """The EMA update ``tau * p + (1 - tau) * t`` over matching nested dicts, lists and
+    tuples of tensors (utils.py:42-45); returns a new tree and changes neither input."""
+    if isinstance(net_params, dict):
+        return {k: soft_update_params(v, target_params[k], tau) for k, v in net_params.items()}
+    if isinstance(net_params, (list, tuple)):
+        return type(net_params)(soft_update_params(p, t, tau)
+                                for p, t in zip(net_params, target_params, strict=True))
+    return tau * net_params + (1 - tau) * target_params
+
+
+def orthogonal_init(shape, gain: float = 1.0, dtype=torch.float32,
+                    generator: torch.Generator = None) -> torch.Tensor:
+    """An orthogonal weight of `shape` (utils.py:52-61 applies ``nn.init.orthogonal_``):
+    ``shape[0]`` against the rest flattened, the output-channel axis of a torch weight, as
+    the JAX package's last axis is of its layouts. Drawn in f32, returned in `dtype`."""
+    w = torch.empty(tuple(shape), dtype=torch.float32)
+    nn.init.orthogonal_(w, gain=gain, generator=generator)
+    return w.to(dtype)
+
+
+def accuracy(output: torch.Tensor, target: torch.Tensor,
+             topk: Sequence[int] = (1,)) -> List[torch.Tensor]:
+    """Top-k accuracy of logits ``[B, C]`` against labels ``[B]`` (utils.py:63-76), as
+    fractions in [0, 1] (the reference's ``correct_k.mul_(1.0 / batch_size)``), not percent.
+    The ranking is a stable sort of ``-output``, as ``jnp.argsort``'s, so tied logits rank
+    the lower class first."""
+    pred = torch.argsort(-output, dim=-1, stable=True)[:, :max(topk)]
+    correct = pred == target[:, None]
+    return [correct[:, :k].any(dim=-1).float().mean() for k in topk]
+
+
+def truncated_normal(shape, mean: float = 0.0, std: float = 1.0, low: float = -2.0,
+                     high: float = 2.0, generator: torch.Generator = None) -> torch.Tensor:
+    """``mean + std * z`` in f32, z a standard normal truncated to [low, high]
+    (utils.py:119-140)."""
+    z = torch.empty(tuple(shape), dtype=torch.float32)
+    nn.init.trunc_normal_(z, 0.0, 1.0, low, high, generator=generator)
+    return mean + std * z
+
+
+def schedule(schdl: Union[str, float], step: int) -> float:
+    """The value of schedule `schdl` at `step` (utils.py:143-163), as a host float: the
+    one grammar and parser of `schedule_fn`."""
+    return float(schedule_fn(schdl)(step))
 
 
 def schedule_fn(schdl: Union[str, float]) -> Callable[[int], float]:

@@ -11,6 +11,7 @@ torch snapshots in both directions. The step comparisons use the tolerances of
 
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -49,6 +50,13 @@ OPTIMIZERS = [("adam", 1e-4), ("adam", "linear(1e-4,1e-5,2)"), ("lars", 1e-3)]
 # (margins 0.0225 and 0.121 at state 1); of seeds 0-15, these have the widest margins at
 # state 1 (0.71 after the Adam step, 0.463 after the LARS one).
 RESUME_BATCH_SEED = {"adam": 12, "lars": 13}
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _np(tree):

@@ -15,6 +15,7 @@
 import dataclasses
 import json
 import os
+import shutil
 from types import SimpleNamespace
 
 import numpy as np
@@ -36,6 +37,13 @@ from r3m_tpu_torch.checkpoint import load_snapshot
 from .torch_ref import TorchLanguageReward, torch_resnet
 
 EMBED_ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _jax_snapshot(path, seed=0, **cfg_kw):
@@ -70,12 +78,15 @@ def image_dir(tmp_path_factory):
         h, w = ((40, 52), (32, 32), (64, 48))[i % 3]
         pixels = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         image.fromarray(pixels).save(sub / f"frame{i:02d}.png")
-    return str(root)
+    yield str(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
 def r18_snapshot(tmp_path_factory):
-    return _jax_snapshot(tmp_path_factory.mktemp("r18") / "snap.npz", size=18, image_size=32)
+    d = tmp_path_factory.mktemp("r18")
+    yield _jax_snapshot(d / "snap.npz", size=18, image_size=32)
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def test_images_load_as_the_jax_loader_loads_them(image_dir):
@@ -172,7 +183,8 @@ def reference_snapshots(tmp_path_factory):
             path, SimpleNamespace(params=state.params, batch_stats=state.batch_stats,
                                   step=np.int32(7)), size=size)
         out[name] = path
-    return out
+    yield out
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.mark.parametrize("which", ["r18", "vit"])
@@ -242,7 +254,8 @@ def hf_dir(tmp_path_factory):
     with open(vocab_file, "w") as f:
         f.write("\n".join(VOCAB) + "\n")
     transformers.DistilBertTokenizer(vocab_file=vocab_file).save_pretrained(str(d))
-    return str(d)
+    yield str(d)
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def test_prepare_language_matches_jax(hf_dir, tmp_path, capsys):
@@ -289,7 +302,8 @@ def vp_artifacts(tmp_path_factory):
     configpath = str(d / "config.yaml")
     with open(configpath, "w") as f:
         yaml.safe_dump({"lr": 1e-4, "agent": {"lr": "${lr}", "size": 18}}, f)
-    return modelpath, configpath
+    yield modelpath, configpath
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def _language_artifact(path):

@@ -32,12 +32,21 @@ VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "opens", "the", "door", "picks", "u
          "cup", "person", "moves", "object", ",", "0", "1", "2", "3"]
 
 
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     """Six videos of 64 px frames, with the JAX package's writer."""
-    return jego4d.write_synthetic_dataset(
-        str(tmp_path_factory.mktemp("ego4d_port")), n_videos=6, min_len=10, max_len=20,
+    d = tmp_path_factory.mktemp("ego4d_port")
+    yield jego4d.write_synthetic_dataset(
+        str(d), n_videos=6, min_len=10, max_len=20,
         size=64, captions=["C opens the door", "C picks up a cup", ""])
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +67,8 @@ def manifest(root, tmp_path_factory):
             f"{p[5]},{n[5]},C moves object 3")
     path = tmp_path_factory.mktemp("manifest") / "manifest.csv"
     path.write_text(text)
-    return str(path)
+    yield str(path)
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def _datasets(manifest_path, **kw):
@@ -149,7 +159,8 @@ def frames(root, tmp_path_factory):
     bad = [str(d / "missing.jpg"), str(d / "garbage.jpg"), str(d / "header.jpg"),
            str(d / "cut.jpg")]
     fixture = [os.path.join(root, "vid000", f"{t:06}.jpg") for t in range(1, 9)]
-    return paths + bad + fixture
+    yield paths + bad + fixture
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture

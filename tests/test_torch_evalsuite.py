@@ -11,6 +11,7 @@ the order of f32 sums in the products and Adam's arithmetic.
 """
 
 import os
+import shutil
 
 import numpy as np
 import pandas as pd
@@ -26,6 +27,13 @@ from r3m_tpu_torch.data.ego4d import Ego4DDataset, read_manifest
 from r3m_tpu_torch.evalsuite import bc, fixtures
 
 TOL = 1e-12
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("size", [32, 64])

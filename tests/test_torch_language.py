@@ -9,6 +9,7 @@ package's exports.
 """
 
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -52,6 +53,13 @@ BERT = dict(vocab_size=40, dim=64, n_layers=2, n_heads=4, hidden_dim=96,
             max_position_embeddings=24)
 BERT12 = dict(BERT, dim=48, n_heads=12)
 ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _vocab_file(path, tokens):
@@ -205,9 +213,11 @@ def language_snapshot_pt(tmp_path_factory):
     sd = {f"module.{k}": v for k, v in model.state_dict().items()}
     sd.update({f"module.lang_enc.model.{k}": v
                for k, v in distilbert_state_from_jax(params).items()})
-    path = str(tmp_path_factory.mktemp("lang_pt") / "snapshot.pt")
+    d = tmp_path_factory.mktemp("lang_pt")
+    path = str(d / "snapshot.pt")
     torch.save({"r3m": sd, "global_step": 11}, path)
-    return path, sd
+    yield path, sd
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def test_convert_language_stack_matches_jax(language_snapshot_pt):

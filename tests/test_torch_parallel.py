@@ -22,10 +22,12 @@ rtol 1e-4 (atol 1e-6).
 As ``tests/test_torch_train_step.py`` says, a ReLU input within rounding of 0 would move
 the leaves upstream of it by ~3e-3; the batch seeds below have none at these shapes, one
 for each ``grad_accum`` (each microbatch is a BatchNorm batch of its own), and the test
-asserts that before it compares (``tests/test_torch_relu_margin.py``).
+asserts that before it compares (``tests/test_torch_relu_margin.py``), against the port's
+rounding and against the JAX step's own ReLU inputs.
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -46,7 +48,14 @@ from r3m_tpu_torch.models.r3m import R3MConfig, r3m_init
 from r3m_tpu_torch.parallel.mesh import launch_local, local_rows
 from r3m_tpu_torch.training.trainer import make_eval_step, make_train_step
 from tests.test_torch_parallel_worker import run_step
-from tests.test_torch_relu_margin import assert_relu_margin, step_forward
+from tests.test_torch_relu_margin import (
+    RELU_ROUNDING,
+    assert_relu_margin,
+    jax_relus,
+    relu_flips,
+    relu_margin,
+    step_forward,
+)
 
 BERT_SMALL = dict(vocab_size=100, dim=768, n_layers=1, n_heads=4, hidden_dim=128,
                   max_position_embeddings=16)
@@ -56,9 +65,12 @@ GRAD_REL_L2 = 1e-3
 # The batch of each grad_accum. Seed 19, which served both before, keeps a margin of 0.256
 # roundings at grad_accum 1 and 0.020 at 2, under the scale; of seeds 0-399 none keeps
 # 0.25 at both. 382 keeps the widest at 1 (0.467). At 2, 384 keeps the widest (0.613) and
-# still parts from the JAX mesh step at W=2 by 1.4e-3 in layer1's leaves (W=4: 2.6e-5),
-# so the margin screens seeds and does not prove one; 225, the next (0.455), agrees.
+# still parts from the JAX mesh step at W=2 by 1.4e-3 in layer1's leaves (W=4: 2.6e-5):
+# the JAX step on one or two devices flips one ReLU input that the port and f64 keep
+# below 0 (`test_relu_screen_rejects_the_seed_whose_jax_step_flips_a_relu`); 225, the
+# next (0.455), flips none and agrees.
 BATCH_SEEDS = {1: 382, 2: 225}
+FLIPPED_SEED = 384  # grad_accum 2
 RANK_TIMEOUT = 240  # seconds a launch of ranks may take before it is stopped
 
 
@@ -146,15 +158,40 @@ class Setup:
             self.cache[key] = [torch.load(out % r, weights_only=False) for r in range(world)]
         return self.cache[key]
 
-    def step_forward(self, grad_accum):
-        """The step's forward for `relu_margin`: each gathered microbatch is the JAX
-        step's, and BatchNorm takes its statistics over all of it, as one process does."""
+    def step_forward(self, grad_accum, seed=None):
+        """The step's forward for `relu_margin` on the batch of `seed` (that of
+        `grad_accum` by default): each gathered microbatch is the JAX step's, and BatchNorm
+        takes its statistics over all of it, as one process does."""
         cfg = R3MConfig(**self.cfg_kw)
         crops, perms = _draws(self.jstate.key, grad_accum, self.jcfg.num_negatives)
         model = model_from_jax(cfg, _np(self.jstate.params), _np(self.jstate.batch_stats))
         bert = distilbert_from_jax(_np(self.jbert), n_heads=BERT_SMALL["n_heads"])
-        return step_forward(cfg, model, self.batches[grad_accum], perms, crops, bert,
-                            grad_accum=grad_accum)
+        return step_forward(cfg, model, self._seed_batch(grad_accum, seed), perms, crops,
+                            bert, grad_accum=grad_accum)
+
+    def _seed_batch(self, grad_accum, seed):
+        if seed is None or seed == BATCH_SEEDS[grad_accum]:
+            return self.batches[grad_accum]
+        return _batch(np.random.default_rng(seed))
+
+    def jax_relu_inputs(self, grad_accum, seed=None):
+        """The ReLU inputs of the JAX mesh step on one device on the batch of `seed`, for
+        `relu_flips`; one compiled step a `grad_accum` (its gradients equal the W=2
+        step's bit for bit, without the recording)."""
+        key = ("relu", grad_accum, seed)
+        if key not in self.cache:
+            step_key = ("relu_step", grad_accum)
+            mesh = jax_make_mesh(1)
+            with jax_relus() as seen:
+                if step_key not in self.cache:
+                    self.cache[step_key] = jtrainer.make_train_step(
+                        self.jcfg, self.jbert, mesh=mesh, donate=False, doaug="rctraj",
+                        grad_accum=grad_accum, bert_cfg=self.bert_cfg)
+                jax.block_until_ready(self.cache[step_key](
+                    replicate(mesh, self.jstate),
+                    shard_batch(mesh, self._seed_batch(grad_accum, seed))))
+            self.cache[key] = seen
+        return self.cache[key]
 
     def want_grads(self, jnew):
         """The JAX step's gradients in the port's names: Adam's first moment after one
@@ -165,7 +202,9 @@ class Setup:
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    return Setup(str(tmp_path_factory.mktemp("parallel")))
+    d = tmp_path_factory.mktemp("parallel")
+    yield Setup(str(d))
+    shutil.rmtree(d, ignore_errors=True)  # the ranks' inputs and results
 
 
 def _grad_errors(got, want):
@@ -201,13 +240,31 @@ def _matches_jax(setup, ranks, world, grad_accum):
 
 @pytest.mark.parametrize("world,grad_accum", [(2, 1), (4, 1), (2, 2), (4, 2)])
 def test_dp_train_step_matches_jax_mesh(setup, world, grad_accum):
-    assert_relu_margin(setup.step_forward(grad_accum), BATCH_SEEDS[grad_accum])
+    assert_relu_margin(setup.step_forward(grad_accum), BATCH_SEEDS[grad_accum],
+                       reference=setup.jax_relu_inputs(grad_accum))
     ranks = setup.port_train(world, grad_accum)
     assert _matches_jax(setup, ranks, world, grad_accum) == []
     for r in ranks[1:]:  # one global loss and one state, bit for bit, on every rank
         assert all(torch.equal(r["metrics"][k], ranks[0]["metrics"][k]) for k in r["metrics"])
         assert all(torch.equal(v, ranks[0]["state"][k]) for k, v in r["state"].items())
         assert r["step"] == 1
+
+
+def test_relu_screen_rejects_the_seed_whose_jax_step_flips_a_relu(setup):
+    """Seed 384 at grad_accum 2 clears the margin of the port's rounding (0.613), but the
+    JAX step flips one input of layer1.1's first ReLU in the first microbatch (frame 4,
+    channel 0, row 5, column 6: -8.4e-6 in f64, +4.8e-6 in JAX). The JAX step on one or
+    two devices then parts from the port's steps at every world, and from its own on four
+    devices, by up to 1.4e-3 in the leaves upstream of that ReLU. The screen with the JAX
+    step's inputs rejects it."""
+    forward = setup.step_forward(2, FLIPPED_SEED)
+    assert relu_margin(forward) > RELU_ROUNDING
+    flips = relu_flips(forward, setup.jax_relu_inputs(2, FLIPPED_SEED))
+    assert [(call, idx) for call, idx, _, _ in flips] == [(3, (4, 0, 5, 6))]
+    assert flips[0][2] < 0 < flips[0][3]
+    with pytest.raises(AssertionError, match=f"seed {FLIPPED_SEED}: the JAX step puts 1"):
+        assert_relu_margin(forward, FLIPPED_SEED,
+                           reference=setup.jax_relu_inputs(2, FLIPPED_SEED))
 
 
 @pytest.mark.parametrize("variant,broken", [

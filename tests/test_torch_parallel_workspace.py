@@ -14,6 +14,7 @@ rtol 1e-5 (atol 1e-5), as the JAX package's mesh-serving test holds its mesh.
 
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
 import types
@@ -43,11 +44,20 @@ CONFIG = os.path.join(REPO, "cfgs", "config_rep.yaml")
 WORLD, GLOBAL_BS = 2, 4
 
 
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    return write_synthetic_dataset(
-        str(tmp_path_factory.mktemp("dp_data")), n_videos=6, min_len=10, max_len=16,
+    d = tmp_path_factory.mktemp("dp_data")
+    yield write_synthetic_dataset(
+        str(d), n_videos=6, min_len=10, max_len=16,
         size=64, captions=["C opens the door", "C picks up a cup"])
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def _overrides(data, **kw):

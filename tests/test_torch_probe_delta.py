@@ -34,6 +34,13 @@ JAX_KEYS = {"steps", "scored_snapshot_step", "doaug", "size", "probe_frames", "r
 ENCODERS = ["random_init(x3)", "step0_snapshot", "trained"]
 
 
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 def _result(run):
     with open(os.path.join(run, "PROBE_DELTA.json")) as f:
         return json.load(f)
@@ -41,9 +48,11 @@ def _result(run):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("probe") / "run")
+    d = tmp_path_factory.mktemp("probe")
+    path = str(d / "run")
     assert probe_delta.main(["--run", path, *ARGS]) == 0
-    return path
+    yield path
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def test_probe_delta_end_to_end(run):

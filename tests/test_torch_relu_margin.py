@@ -22,13 +22,21 @@ a false pass. A scale relative to the layer's largest input (1e-5 or 1e-6 of it)
 tell them apart: at these sizes the stem's smallest input is ~1e-7 of its largest on
 every seed, far from any flip, while seed 0's flip three blocks down sits at 3e-7.
 
-The margin screens seeds; it does not prove one. It measures the port's own rounding,
-and the JAX package's BatchNorm variance (E[x^2] - E[x]^2) rounds more: one batch of
-``tests/test_torch_parallel.py`` with a margin of 0.613 still parts from the JAX mesh
-step in one configuration. A seed is kept only where its margin clears the scale and its
-comparison passes.
+The margin screens seeds; it does not prove one. It measures the port's own rounding, and
+the JAX package's f32 step rounds its ReLU inputs 1.7 to 8.9 times more (the largest
+|f32 - f64| of each ReLU call of ``tests/test_torch_parallel.py``'s step, seed 384). At
+that seed the margin is 0.613, yet the JAX mesh step on one or two devices puts one input
+of layer1.1's first ReLU (frame 4, channel 0, row 5, column 6 of the first microbatch) at
++4.8e-6, where the f64 forward has -8.4e-6 and the port's f32 -7.5e-6: JAX passes that
+gradient and the port blocks it, and the leaves upstream of it part by up to 1.4e-3. So
+where a test holds the port to a JAX step, `assert_relu_margin` also takes that step's own
+ReLU inputs (`jax_relus` records them) and fails on any that falls on the other side of 0
+from the f64 forward (`relu_flips`). A margin over both packages' roundings does not tell
+such seeds apart: seed 225, whose comparison passes, keeps 0.067 of JAX's rounding and 384
+0.125. A seed is kept only where the screen passes and its comparison passes.
 """
 
+import contextlib
 import copy
 import dataclasses
 from collections.abc import Mapping
@@ -80,12 +88,73 @@ def relu_margin(forward) -> float:
     return margin
 
 
-def assert_relu_margin(forward, seed, scale: float = RELU_ROUNDING) -> None:
-    """Fail, saying why, if the batch of `seed` puts a ReLU input within rounding of 0."""
+def relu_flips(forward, reference) -> list:
+    """Where another computation's f32 ReLU inputs (`reference`: one array a ReLU call, in
+    the port's call order and layout, as `jax_relus` records them) lie on the other side of
+    0 from `forward`'s in float64: ``(call, index, f64 value, reference value)``, one a
+    flipped input."""
+    with relu_inputs() as seen:
+        forward(torch.float64)
+    if len(seen.inputs) != len(reference):
+        raise ValueError(f"ReLU calls: {len(reference)} in the reference, "
+                         f"{len(seen.inputs)} in f64")
+    flips = []
+    for call, (x64, ref) in enumerate(zip(seen.inputs, reference)):
+        x64 = x64.numpy()
+        ref = np.asarray(ref).reshape(x64.shape)
+        for idx in np.argwhere((x64 > 0) != (ref > 0)):
+            flips.append((call, tuple(int(i) for i in idx), float(x64[tuple(idx)]),
+                          float(ref[tuple(idx)])))
+    return flips
+
+
+def assert_relu_margin(forward, seed, scale: float = RELU_ROUNDING, reference=None) -> None:
+    """Fail, saying why, if the batch of `seed` puts a ReLU input within rounding of 0, or,
+    given the JAX step's own ReLU inputs (`reference`), if that step flips one."""
     margin = relu_margin(forward)
     assert margin > scale, (
         f"seed {seed} now has a ReLU input within rounding of 0 (margin {margin:.3g} "
         f"roundings, against {scale:g}); pick another seed and say why")
+    flips = [] if reference is None else relu_flips(forward, reference)
+    assert not flips, (
+        f"seed {seed}: the JAX step puts {len(flips)} ReLU input(s) on the other side of 0 "
+        f"from the f64 forward (call, index, f64, JAX: {flips[:3]}), so its gradients part "
+        "from the port's; pick another seed and say why")
+
+
+_RECORDING = []  # the lists of the open `jax_relus` blocks, innermost last
+
+
+def _keep_relu_input(x):
+    if _RECORDING:
+        x = np.array(x)
+        _RECORDING[-1].append(x.transpose(0, 3, 1, 2) if x.ndim == 4 else x)
+
+
+@contextlib.contextmanager
+def jax_relus():
+    """Inside ``with jax_relus() as seen:``, each ReLU input of a JAX program that runs is
+    appended to ``seen`` in call order, 4-D ones from JAX's NHWC to the port's NCHW: a
+    program traced in such a block calls `jax.nn.relu` through a host callback, and runs
+    of it in a later block record there. The callbacks make such a program round like the
+    JAX step, but not bit for bit as it."""
+    import jax
+
+    real = jax.nn.relu
+
+    def relu(x):
+        jax.debug.callback(_keep_relu_input, x, ordered=True)
+        return real(x)
+
+    seen = []
+    _RECORDING.append(seen)
+    jax.nn.relu = relu
+    try:
+        yield seen
+        jax.effects_barrier()
+    finally:
+        jax.nn.relu = real
+        _RECORDING.pop()
 
 
 def step_forward(cfg, model, batch, perms, crops=None, bert=None, doaug="rctraj",
@@ -174,6 +243,27 @@ def test_margin_counts_roundings_and_flags_an_input_within_them():
     assert relu_margin(edge) < RELU_ROUNDING
     with pytest.raises(AssertionError, match="seed 7 now has a ReLU input within rounding"):
         assert_relu_margin(edge, 7)
+
+
+def test_flips_find_a_reference_input_on_the_other_side_of_zero():
+    """The f32 inputs of the same layers agree in sign with the f64 ones; the same inputs
+    with one element moved across 0 give that one flip, and the assertion names it."""
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(64, 16)))
+    forward = lambda dtype: _layers(dtype, x)  # noqa: E731
+    with relu_inputs() as seen:
+        forward(torch.float32)
+    reference = [t.numpy() for t in seen.inputs]
+    assert relu_flips(forward, reference) == []
+    assert_relu_margin(forward, 1, reference=reference)
+    i = np.argwhere(reference[1] > 0)[0]
+    reference[1][tuple(i)] *= -1
+    flips = relu_flips(forward, reference)
+    assert [(c, idx) for c, idx, _, _ in flips] == [(1, tuple(int(k) for k in i))]
+    assert flips[0][2] > 0 > flips[0][3]
+    with pytest.raises(AssertionError, match="seed 5: the JAX step puts 1 ReLU input"):
+        assert_relu_margin(forward, 5, reference=reference)
+    with pytest.raises(ValueError, match="ReLU calls"):
+        relu_flips(forward, reference[:1])
 
 
 def test_margin_needs_the_same_relus_in_both_precisions():

@@ -19,6 +19,7 @@ of the first update's distance, far outside that tolerance.
 import copy
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -37,6 +38,13 @@ from tests.test_torch_train_step import CLIPS, Setup, _assert_bn_stats, _assert_
 
 RTOL_NONE = 1e-5
 GRAD_REL_L2_NONE = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ precision stays within atol 0.05 of parity.
 
 import dataclasses
 import os
+import shutil
 from types import SimpleNamespace
 
 import numpy as np
@@ -91,8 +92,9 @@ def art(tmp_path_factory):
                 for k, v in distilbert_state_from_jax(bert12).items()}
     embedded_pt = _export_pt(os.path.join(d, "embedded.pt"), r18, 18, embedded)
     bare_pt = _export_pt(os.path.join(d, "bare.pt"), r18, 18)
-    return SimpleNamespace(snap=snap, snap16=snap16, no_head=no_head, bert=bert, vocab=vocab,
-                           vit_pt=vit_pt, embedded_pt=embedded_pt, bare_pt=bare_pt)
+    yield SimpleNamespace(snap=snap, snap16=snap16, no_head=no_head, bert=bert, vocab=vocab,
+                          vit_pt=vit_pt, embedded_pt=embedded_pt, bare_pt=bare_pt)
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -8,6 +8,7 @@ parity forward runs, and imports neither JAX nor the JAX package.
 
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
 
@@ -23,6 +24,13 @@ from r3m_tpu.convert import export_r3m_torch_state
 from r3m_tpu.models.r3m import R3MConfig as JaxR3MConfig, r3m_init
 from r3m_tpu_torch.models.r3m import R3MConfig, R3MEncoder
 from r3m_tpu_torch.models.resnet import ResNet
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _cosine_rows(a, b):
@@ -49,12 +57,16 @@ def _write_model_pt(path, size, seed=0, image_size=64):
 
 @pytest.fixture(scope="module")
 def resnet18_pt(tmp_path_factory):
-    return _write_model_pt(tmp_path_factory.mktemp("r18") / "model.pt", 18)
+    d = tmp_path_factory.mktemp("r18")
+    yield _write_model_pt(d / "model.pt", 18)
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
 def vit_pt(tmp_path_factory):
-    return _write_model_pt(tmp_path_factory.mktemp("vit") / "model.pt", 0)
+    d = tmp_path_factory.mktemp("vit")
+    yield _write_model_pt(d / "model.pt", 0)
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def _frames(rng, hw=(48, 64), n=2):

@@ -60,11 +60,20 @@ GRAD_REL_L2 = 1e-3
 TIMING = {"step", "sample_time", "update_time", "step_time"}
 
 
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's temporary directory goes when the test ends: the suite's files add up."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    return write_synthetic_dataset(
-        str(tmp_path_factory.mktemp("ws_port_data")), n_videos=4, min_len=10, max_len=16,
+    d = tmp_path_factory.mktemp("ws_port_data")
+    yield write_synthetic_dataset(
+        str(d), n_videos=4, min_len=10, max_len=16,
         size=64, captions=["C opens the door", "C picks up a cup"])
+    shutil.rmtree(d, ignore_errors=True)
 
 
 TORCH_THREADS = 2  # the suite runs several files at once: one process a file, few threads
