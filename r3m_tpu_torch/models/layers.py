@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from r3m_tpu_torch.utils.profiling import DENSE_EPILOGUE, span
+
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm over the last axis; f32 statistics, output in x.dtype."""
@@ -66,4 +68,5 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Te
         x2 = x.reshape(-1, x.shape[-1])
         out = _DenseLowPrecision.apply(x2, weight)
         out = out.reshape(*x.shape[:-1], weight.shape[0])
-    return (out + bias.to(torch.float32)).to(x.dtype)
+    with span(DENSE_EPILOGUE):
+        return (out + bias.to(torch.float32)).to(x.dtype)

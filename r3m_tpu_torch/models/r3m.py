@@ -37,6 +37,7 @@ from r3m_tpu_torch.ops.image import (
     VIT_STD,
     r3m_preprocess,
 )
+from r3m_tpu_torch.utils.profiling import ENCODER, ENCODER_CHECK, ENCODER_EMBED, ENCODER_H2D, span
 
 LANG_DIM = 768  # DistilBERT hidden size (models_language.py:21)
 
@@ -323,6 +324,10 @@ class R3MEncoder(nn.Module):
         """NCHW [0,255] images -> [B, out_dim]. `num_ims`/`obs_shape` are accepted for
         reference-signature compatibility (models_r3m.py:84); shapes are handled
         automatically."""
+        with span(ENCODER):
+            return self._forward(obs)
+
+    def _forward(self, obs) -> torch.Tensor:
         if not isinstance(obs, torch.Tensor):
             obs = torch.from_numpy(np.asarray(obs))
         if obs.ndim == 3:
@@ -344,16 +349,19 @@ class R3MEncoder(nn.Module):
         precision_scope = contextlib.nullcontext() if fast else full_f32()
         # the ViT's replicas exist only on a mesh of several devices
         replicate = self.cfg.size != 0 or n > 1
-        if replicate and self._stale():
-            self.refold()
+        with span(ENCODER_CHECK):
+            if replicate and self._stale():
+                self.refold()
         per = obs.shape[0] // n
         with torch.inference_mode(), precision_scope:
             outs = []
             for i in range(n):  # every part is queued before any result is read
                 device = self.device if i == 0 else self.devices[i]
-                part = obs[i * per:(i + 1) * per].to(device).permute(0, 2, 3, 1)  # NHWC
+                with span(ENCODER_H2D):
+                    part = obs[i * per:(i + 1) * per].to(device)
                 weights = self._replicas[i] if replicate else self.convnet
-                outs.append(self._embed(weights, part, fast))
+                with span(ENCODER_EMBED):
+                    outs.append(self._embed(weights, part.permute(0, 2, 3, 1), fast))  # NHWC
             return outs[0] if n == 1 else torch.cat([o.to(outs[0].device) for o in outs])
 
     def _embed(self, weights, obs: torch.Tensor, fast: bool) -> torch.Tensor:

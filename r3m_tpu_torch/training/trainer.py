@@ -48,6 +48,16 @@ from r3m_tpu_torch.parallel.collectives import (
 )
 from r3m_tpu_torch.parallel.mesh import local_rows
 from r3m_tpu_torch.utils.misc import schedule_fn
+from r3m_tpu_torch.utils.profiling import (
+    STEP,
+    STEP_AUGMENT,
+    STEP_BACKWARD,
+    STEP_ENCODE,
+    STEP_LANGUAGE,
+    STEP_LOSS,
+    STEP_OPTIMIZER,
+    span,
+)
 
 Batch = Mapping[str, Union[torch.Tensor, np.ndarray]]
 Perms = Dict[str, torch.Tensor]
@@ -148,12 +158,11 @@ def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
             .to(device) for k, v in batch.items()}
 
 
-def _encode_and_loss(cfg, model, images, lang_emb, lang_mask, perms, train, prenormalized,
-                     group=None):
-    """Shared forward: ``[B, 5, H, W, 3]`` images -> (full_loss, metrics). With a process
-    `group` the images are this rank's rows: BatchNorm (in train mode) takes the statistics
-    of every rank's rows, and the loss is that of every rank's embeddings and language
-    gathered in rank order."""
+def _encode(cfg, model, images, lang_emb, lang_mask, train, prenormalized, group=None):
+    """Shared forward: ``[B, 5, H, W, 3]`` images -> ``(emb [B, 5, D], lang_emb,
+    lang_mask)``, the losses' inputs. With a process `group` the images are this rank's
+    rows: BatchNorm (in train mode) takes the statistics of every rank's rows, and the
+    embeddings and language are every rank's, gathered in rank order."""
     bs = images.shape[0]
     flat = images.reshape(bs * 5, *images.shape[2:])
     emb = r3m_embed(cfg, model.convnet, flat, train=train, prenormalized=prenormalized,
@@ -165,6 +174,14 @@ def _encode_and_loss(cfg, model, images, lang_emb, lang_mask, perms, train, pren
             with torch.no_grad():
                 lang_emb = all_gather_rows(lang_emb, group)
                 lang_mask = all_gather_rows(lang_mask, group)
+    return emb, lang_emb, lang_mask
+
+
+def _encode_and_loss(cfg, model, images, lang_emb, lang_mask, perms, train, prenormalized,
+                     group=None):
+    """`_encode`, then the losses: ``(full_loss, metrics)``."""
+    emb, lang_emb, lang_mask = _encode(cfg, model, images, lang_emb, lang_mask, train,
+                                       prenormalized, group)
     return r3m_loss(cfg, model.lang_rew, emb, lang_emb, lang_mask, perms)
 
 
@@ -265,10 +282,57 @@ def make_train_step(
     def step(state: TrainState, batch: Batch,
              perms: Optional[Union[Perms, Sequence[Perms]]] = None,
              crops: Optional[torch.Tensor] = None):
-        with _precision(cfg):
+        with span(STEP), _precision(cfg):
             return _step(state, batch, perms, crops)
 
     def _step(state, batch, perms, crops):
+        # the step's work runs inside its phase spans, which partition it (profiling.SPANS)
+        with span(STEP_AUGMENT):
+            batch, images, perms = _augment(state, batch, perms, crops)
+        with span(STEP_LANGUAGE):
+            lang_emb, lang_mask = _language(cfg, bert, batch)
+        with span(STEP_OPTIMIZER):
+            state.optimizer.zero_grad(set_to_none=True)
+        micro = images.shape[0] // grad_accum
+        sums: Dict[str, torch.Tensor] = {}
+        for m in range(grad_accum):
+            part = slice(m * micro, (m + 1) * micro)
+            loss = _forward(state, part, images, lang_emb, lang_mask, perms[m], sums)
+            with span(STEP_BACKWARD):
+                (loss / grad_accum).backward()
+        with span(STEP_LOSS):
+            metrics = {k: v / grad_accum for k, v in sums.items()}
+        with span(STEP_OPTIMIZER):
+            if group is not None:
+                average_gradients(state.model.parameters(), group)
+            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+            metrics["grad_norm"] = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            for param_group in state.optimizer.param_groups:
+                param_group["lr"] = lr_fn(state.step)
+            state.optimizer.step()
+            state.step += 1
+        return state, metrics
+
+    def _forward(state, part, images, lang_emb, lang_mask, perms, sums):
+        """The encoder forward and losses of the microbatch `part` (a slice of the rows):
+        its loss, its metrics added to `sums`."""
+        with span(STEP_ENCODE):
+            emb, lang_emb, lang_mask = _encode(
+                cfg, state.model, images[part],
+                None if lang_emb is None else lang_emb[part],
+                None if lang_mask is None else lang_mask[part], True, prenorm, group,
+            )
+        with span(STEP_LOSS):
+            loss, metrics = r3m_loss(cfg, state.model.lang_rew, emb, lang_emb, lang_mask,
+                                     {k: v.to(device) for k, v in perms.items()})
+            for k, v in metrics.items():
+                sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+        return loss
+
+    def _augment(state, batch, perms, crops):
+        """``(batch, images, perms)``: the batch on the device, its images cropped and
+        normalized where `doaug` says, and one permutation set a microbatch."""
         nonlocal unchecked
         if state.device != device:
             raise ValueError(f"state lives on {state.device}, the step on {device}")
@@ -299,31 +363,7 @@ def make_train_step(
             perms = [perms]
         if len(perms) != grad_accum:
             raise ValueError(f"{len(perms)} permutation sets for grad_accum={grad_accum}")
-        lang_emb, lang_mask = _language(cfg, bert, batch)
-
-        state.optimizer.zero_grad(set_to_none=True)
-        sums: Dict[str, torch.Tensor] = {}
-        for m in range(grad_accum):
-            part = slice(m * micro, (m + 1) * micro)
-            loss, metrics = _encode_and_loss(
-                cfg, state.model, images[part],
-                None if lang_emb is None else lang_emb[part],
-                None if lang_mask is None else lang_mask[part],
-                {k: v.to(device) for k, v in perms[m].items()}, True, prenorm, group,
-            )
-            (loss / grad_accum).backward()
-            for k, v in metrics.items():
-                sums[k] = sums[k] + v.detach() if k in sums else v.detach()
-        metrics = {k: v / grad_accum for k, v in sums.items()}
-        if group is not None:
-            average_gradients(state.model.parameters(), group)
-        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        for param_group in state.optimizer.param_groups:
-            param_group["lr"] = lr_fn(state.step)
-        state.optimizer.step()
-        state.step += 1
-        return state, metrics
+        return batch, images, perms
 
     return step
 

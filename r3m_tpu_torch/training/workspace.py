@@ -56,7 +56,7 @@ from r3m_tpu_torch.training.trainer import (
 from r3m_tpu_torch.utils.config import Config, agent_to_r3m_config
 from r3m_tpu_torch.utils.logger import Logger
 from r3m_tpu_torch.utils.misc import Every, Until, set_seed_everywhere
-from r3m_tpu_torch.utils.profiling import start_trace, stop_trace
+from r3m_tpu_torch.utils.profiling import WORKSPACE_INPUT_WAIT, span, start_trace, stop_trace
 
 
 def data_parallel_world(cfg: Config, device: torch.device) -> int:
@@ -393,7 +393,8 @@ class Workspace:
             if prof_dir and prof is None and self.global_step == prof_start:
                 prof = start_trace(prof_dir)
             t0 = time.time()
-            batch = self._ready(next(placed))
+            with span(WORKSPACE_INPUT_WAIT):
+                batch = self._ready(next(placed))
             t1 = time.time()
             self.state, metrics = self.train_step(self.state, batch)
             t2 = time.time()

@@ -8,6 +8,30 @@ with the card's kernels where CUDA is available. `op_profile_raw` sums the newes
 trace's device events (kernels, copies and memsets) by name into the JAX function's rows,
 `op_profile_summary` digests them into time shares and rates, and `print_op_profile`
 prints them. A trace of the CPU alone has no device events and so no rows.
+
+`span(name)` marks a region of the program in whatever `torch.profiler` is recording: the
+workspace's profile window, a benchmark's traced window or a user's own profiler. While
+one records it is a range the trace holds as a host op named `name`, on the host's
+timeline around the ops inside it, whose kernels carry their launching op's id; otherwise
+it is a shared null context, and costs one attribute read. The program's spans, `SPANS`:
+
+- ``r3m.step``: one call of the train step (`make_train_step`). Six phases partition it:
+  ``r3m.step.augment`` (the batch's placement, the crop and permutation draws from the
+  state's generator, RandomResizedCrop), ``r3m.step.language`` (DistilBERT's sentence
+  embedding), ``r3m.step.encode`` (the backbone's forward and, over several cards, the
+  gather of the embeddings; once a microbatch), ``r3m.step.loss`` (the R3M losses and the
+  metrics' sums, once a microbatch; then the metrics' means), ``r3m.step.backward`` (the
+  backward call; once a microbatch) and ``r3m.step.optimizer`` (clearing the gradients
+  before the microbatches; then the gradients' average over the cards, their norm, the
+  learning rate and the update). On the card the autograd engine launches the
+  backward's kernels from a thread of its own, under ``autograd::engine::evaluate_function``
+  ops rather than under ``r3m.step.backward``.
+- ``r3m.encoder``: one call of `R3MEncoder`, with ``r3m.encoder.check`` (whether the
+  serving weights are stale, and their refold), ``r3m.encoder.h2d`` (each part of the
+  batch moved to its device) and ``r3m.encoder.embed`` (each part's forward).
+- ``r3m.dense.epilogue``: the f32 bias add and the cast back of the ViT's `dense`.
+- ``r3m.workspace.input_wait``: the workspace's train loop waiting for its next batch on
+  the device.
 """
 
 from __future__ import annotations
@@ -20,6 +44,43 @@ from collections import defaultdict
 from typing import List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+STEP = "r3m.step"
+STEP_AUGMENT = "r3m.step.augment"
+STEP_LANGUAGE = "r3m.step.language"
+STEP_ENCODE = "r3m.step.encode"
+STEP_LOSS = "r3m.step.loss"
+STEP_BACKWARD = "r3m.step.backward"
+STEP_OPTIMIZER = "r3m.step.optimizer"
+ENCODER = "r3m.encoder"
+ENCODER_CHECK = "r3m.encoder.check"
+ENCODER_H2D = "r3m.encoder.h2d"
+ENCODER_EMBED = "r3m.encoder.embed"
+DENSE_EPILOGUE = "r3m.dense.epilogue"
+WORKSPACE_INPUT_WAIT = "r3m.workspace.input_wait"
+STEP_PHASES = (STEP_AUGMENT, STEP_LANGUAGE, STEP_ENCODE, STEP_LOSS, STEP_BACKWARD,
+               STEP_OPTIMIZER)
+SPANS = (STEP, *STEP_PHASES, ENCODER, ENCODER_CHECK, ENCODER_H2D, ENCODER_EMBED,
+         DENSE_EPILOGUE, WORKSPACE_INPUT_WAIT)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking `name` (one of `SPANS`) in the trace that a
+    `torch.profiler` is recording; with none recording, a shared null context. A plain
+    function, so that the untraced path reads one flag.
+
+    The range is a function-scope record (``_RecordFunctionFast``), which the trace keeps
+    on the host's timeline alone. A ``record_function`` range is a user annotation, which
+    CUDA traces copy onto the device's timeline under the same id, so that a reader
+    pairing events by id may take the device's copy for the host's range; it also costs
+    several times more a range, with or without a profiler."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
 def start_trace(log_dir: str) -> torch.profiler.profile:
