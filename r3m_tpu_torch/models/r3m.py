@@ -15,12 +15,14 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import warnings
 from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from r3m_tpu_torch.models import graphs
 from r3m_tpu_torch.models.language_reward import LanguageReward
 from r3m_tpu_torch.models.resnet import (
     ResNet,
@@ -37,7 +39,15 @@ from r3m_tpu_torch.ops.image import (
     VIT_STD,
     r3m_preprocess,
 )
-from r3m_tpu_torch.utils.profiling import ENCODER, ENCODER_CHECK, ENCODER_EMBED, ENCODER_H2D, span
+from r3m_tpu_torch.ops.pool import maxpool_3x3s2_fwd
+from r3m_tpu_torch.utils.profiling import (
+    ENCODER,
+    ENCODER_CHECK,
+    ENCODER_EMBED,
+    ENCODER_H2D,
+    ENCODER_REPLAY,
+    span,
+)
 
 LANG_DIM = 768  # DistilBERT hidden size (models_language.py:21)
 
@@ -247,6 +257,13 @@ class R3MEncoder(nn.Module):
     device, made once; a batch, whose size must divide by the mesh's, is split in device
     order, each part's forward issued on its device before any result is read, and the
     embeddings come back on the first device. It replaces `device`.
+
+    On one CUDA device, a ResNet's batches of at most `graphs.MAX_BATCH` frames run as a
+    CUDA graph from their second call on: one graph a (shape, dtype, precision) of input,
+    at most `graphs.MAX_KEYS` of them, each with its own pool of activations. The call
+    still returns a fresh tensor, and a refold (after any change to the weights) drops
+    every graph. `graph_captures`, `graph_replays` and `graph_fallbacks` (captures that
+    raised, whose shapes then stay eager) count them.
     """
 
     def __init__(
@@ -273,6 +290,8 @@ class R3MEncoder(nn.Module):
         self.convnet = convnet.to(self.devices[0]).eval()
         self._replicas = None  # the serving weights, one a device: folded trees or ViTs
         self._folded_src = None
+        self._graphs = graphs.GraphCache()
+        self.graph_captures = self.graph_replays = self.graph_fallbacks = 0
 
     @property
     def module(self):  # DataParallel-compat alias (the reference accesses .module)
@@ -292,7 +311,9 @@ class R3MEncoder(nn.Module):
 
     def refold(self):
         """Recompute the serving weights of every device from the current parameters:
-        the BN-folded tree of a ResNet, the ViT itself (copied to the other devices)."""
+        the BN-folded tree of a ResNet, the ViT itself (copied to the other devices).
+        Drops every CUDA graph, which read the weights it replaces."""
+        self._graphs.clear()
         devices = (self.device,) + self.devices[1:]
         if self.cfg.size == 0:
             replicas = [self.convnet] + [copy.deepcopy(self.convnet).to(d) for d in devices[1:]]
@@ -354,6 +375,12 @@ class R3MEncoder(nn.Module):
                 self.refold()
         per = obs.shape[0] // n
         with torch.inference_mode(), precision_scope:
+            # a graph reads weights the encoder owns and refreshes through `refold`: the
+            # folded tree of a ResNet on one device (a ViT serves the caller's own module)
+            if n == 1 and graphs.engages(replicate, self.device, obs.shape[0]):
+                out = self._replay(obs, fast)
+                if out is not None:
+                    return out
             outs = []
             for i in range(n):  # every part is queued before any result is read
                 device = self.device if i == 0 else self.devices[i]
@@ -363,6 +390,53 @@ class R3MEncoder(nn.Module):
                 with span(ENCODER_EMBED):
                     outs.append(self._embed(weights, part.permute(0, 2, 3, 1), fast))  # NHWC
             return outs[0] if n == 1 else torch.cat([o.to(outs[0].device) for o in outs])
+
+    def _replay(self, obs: torch.Tensor, fast: bool) -> Optional[torch.Tensor]:
+        """The forward of `obs` by its key's CUDA graph, or None where this call runs
+        eagerly: the key's first call, and every call of a key whose capture raised."""
+        key = (tuple(obs.shape), obs.dtype, self.precision)
+        cache = self._graphs
+        with cache.lock:
+            if key in cache.failed or not cache.seen(key):
+                return None
+            entry = cache.entries[key]
+            if entry is None:
+                try:
+                    entry = self._capture(obs, fast)
+                except RuntimeError as e:
+                    cache.failed.add(key)
+                    del cache.entries[key]
+                    self.graph_fallbacks += 1
+                    if self.graph_fallbacks == 1:
+                        warnings.warn(f"R3MEncoder: capturing the forward of {key} as a "
+                                      f"CUDA graph raised ({e}); that input runs eagerly")
+                    return None
+                cache.entries[key] = entry
+                self.graph_captures += 1
+            with span(ENCODER_H2D):
+                entry.static_in.copy_(obs)
+            with span(ENCODER_REPLAY):
+                entry.replay()
+            maxpool_3x3s2_fwd.launches += entry.k1_launches
+            self.graph_replays += 1
+            return entry.static_out.clone()
+
+    def _capture(self, obs: torch.Tensor, fast: bool) -> graphs.Graphed:
+        weights = self._replicas[0]
+        static_in = torch.empty(obs.shape, dtype=obs.dtype, device=self.device)
+        static_in.copy_(obs)
+        k1 = 0  # K1's launches in the last call of `forward`, the captured one
+
+        def forward(x):
+            nonlocal k1
+            before = maxpool_3x3s2_fwd.launches
+            out = self._embed(weights, x.permute(0, 2, 3, 1), fast)  # NHWC
+            k1 = maxpool_3x3s2_fwd.launches - before
+            return out
+
+        replay, static_out = graphs.capture(forward, static_in)
+        maxpool_3x3s2_fwd.launches -= k1  # the captured launches were recorded, not run
+        return graphs.Graphed(replay, static_in, static_out, weights, k1)
 
     def _embed(self, weights, obs: torch.Tensor, fast: bool) -> torch.Tensor:
         if self.cfg.size == 0:

@@ -12,6 +12,7 @@ antialias=False)`` implements. The two agree to float rounding, borders included
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -24,10 +25,20 @@ VIT_MEAN = (0.5, 0.5, 0.5)
 VIT_STD = (0.5, 0.5, 0.5)
 
 
+@functools.lru_cache(maxsize=None)
+def _channel_stats(mean: tuple, std: tuple, device: torch.device, dtype: torch.dtype):
+    """``(mean, 1 / std)`` as tensors on `device`, made once a (statistics, device, dtype):
+    each is a copy from the host's pageable memory, which a CUDA graph's capture does not
+    admit. Never inference tensors, so that autograd may save them."""
+    with torch.inference_mode(False):
+        mean_t = torch.tensor(mean, dtype=dtype, device=device)
+        inv_std = 1.0 / torch.tensor(std, dtype=dtype, device=device)
+    return mean_t, inv_std
+
+
 def normalize(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
     """Channel-wise (x - mean) / std over the last (C) axis; x in [0, 1]."""
-    mean_t = torch.tensor(mean, dtype=x.dtype, device=x.device)
-    inv_std = 1.0 / torch.tensor(std, dtype=x.dtype, device=x.device)
+    mean_t, inv_std = _channel_stats(tuple(mean), tuple(std), x.device, x.dtype)
     return (x - mean_t) * inv_std
 
 

@@ -28,7 +28,9 @@ it is a shared null context, and costs one attribute read. The program's spans, 
   ops rather than under ``r3m.step.backward``.
 - ``r3m.encoder``: one call of `R3MEncoder`, with ``r3m.encoder.check`` (whether the
   serving weights are stale, and their refold), ``r3m.encoder.h2d`` (each part of the
-  batch moved to its device) and ``r3m.encoder.embed`` (each part's forward).
+  batch moved to its device, or into a CUDA graph's input buffer) and either
+  ``r3m.encoder.embed`` (each part's eager forward) or ``r3m.encoder.replay`` (the replay
+  of the forward's CUDA graph, `r3m_tpu_torch.models.graphs`).
 - ``r3m.dense.epilogue``: the f32 bias add and the cast back of the ViT's `dense`.
 - ``r3m.workspace.input_wait``: the workspace's train loop waiting for its next batch on
   the device.
@@ -58,12 +60,13 @@ ENCODER = "r3m.encoder"
 ENCODER_CHECK = "r3m.encoder.check"
 ENCODER_H2D = "r3m.encoder.h2d"
 ENCODER_EMBED = "r3m.encoder.embed"
+ENCODER_REPLAY = "r3m.encoder.replay"
 DENSE_EPILOGUE = "r3m.dense.epilogue"
 WORKSPACE_INPUT_WAIT = "r3m.workspace.input_wait"
 STEP_PHASES = (STEP_AUGMENT, STEP_LANGUAGE, STEP_ENCODE, STEP_LOSS, STEP_BACKWARD,
                STEP_OPTIMIZER)
 SPANS = (STEP, *STEP_PHASES, ENCODER, ENCODER_CHECK, ENCODER_H2D, ENCODER_EMBED,
-         DENSE_EPILOGUE, WORKSPACE_INPUT_WAIT)
+         ENCODER_REPLAY, DENSE_EPILOGUE, WORKSPACE_INPUT_WAIT)
 
 _OFF = contextlib.nullcontext()
 

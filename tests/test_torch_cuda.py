@@ -573,7 +573,10 @@ def _reward_artifacts(tmp_path, size, image_size):
 @pytest.mark.parametrize("size,image_size", [(18, 32), (0, 64)])
 def test_reward_on_the_card_matches_the_cpu(gen, tmp_path, size, image_size, precision):
     """Rewards of image pairs and a reward curve on the card, through K1 (one stacked pass
-    a query) or K3 (12 launches a pass), against the port on the CPU."""
+    a query) or K3 (12 launches a pass), against the port on the CPU. The ResNet's two
+    passes of one shape are the encoder's eager first call and the capture of its CUDA
+    graph, which runs `graphs.WARMUP` eager passes before its replay."""
+    from r3m_tpu_torch.models import graphs
     from r3m_tpu_torch.reward import R3MRewardModel
 
     arts = _reward_artifacts(tmp_path, size, image_size)
@@ -583,11 +586,13 @@ def test_reward_on_the_card_matches_the_cpu(gen, tmp_path, size, image_size, pre
     im0, imt = (rng.integers(0, 256, (3, 3, image_size, image_size), np.uint8)
                 for _ in range(2))
     counter, per_pass = ((maxpool_3x3s2_fwd, 1) if size else (fused_attention_fwd, 12))
+    passes = 2 + (graphs.WARMUP if size else 0)
     before = counter.launches
     got = cuda(im0, imt, REWARD_SENTENCES)
     curve = cuda.reward_curve(np.concatenate([im0, imt]), "open the door")
     torch.cuda.synchronize()
-    assert counter.launches == before + 2 * per_pass
+    assert counter.launches == before + passes * per_pass
+    assert cuda._encoder.graph_captures == (1 if size else 0)
     assert got.device.type == "cuda" and got.dtype == torch.float32 and got.shape == (3,)
     want = cpu(im0, imt, REWARD_SENTENCES)
     want_curve = cpu.reward_curve(np.concatenate([im0, imt]), "open the door")
