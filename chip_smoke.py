@@ -26,8 +26,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    stated atol and to a relative L2 error that tells whether they round where their
    plain versions do, K4 also against autograd of K3's plain forward, at ViT-B/32's
    heads at 224 px (T = 50, one block a head) and at 384 px (T = 145, the head form: one
-   block a head walking its keys in bf16, its query rows in f32), and at T = 577 (768 px,
-   key tiles, correctness only), with the form K3 and K4 took at each
+   block a head walking its keys in bf16, its query rows in f32), K3 alone at DINOv2-g/14's
+   request (``dinov2_serve``: 256 frames of T = 261 in 24 heads of 64, key tiles), and at
+   T = 577 (768 px, key tiles, correctness only), with the form K3 and K4 took at each
    (`attention_fwd_path`, `attention_bwd_path`) and the head forms' blocks an SM
    (`attention_head_blocks_per_sm`); under grad a CUDA call carries
    a grad_fn and its backward is the kernel; each row also gives the kernel's time over
@@ -202,6 +203,9 @@ F32_ATTENTION_KERNELS = ("attention_fwd_f32_kernel", "attention_bwd_f32_kernel",
                          "attention_bwd_f32_head_kernel")
 # ViT-B/32 at 384 px: 12 x 12 patches and the class token, more than one block holds whole.
 T_384 = 145
+# DINOv2-g/14 with registers at 224 px: 16 x 16 patches, the class token and 4 registers,
+# in 24 heads of 64 (the serve_dinov2_g14_b256 request), which K3 takes in key tiles.
+T_DINOV2 = 261
 SERVE_384_BATCH = 64
 TRAIN_384_CLIPS = 16
 TIMED_STEPS_384 = 3
@@ -479,9 +483,10 @@ def parent_turns(parent, launch, outs) -> dict:
 
 def check_attention(gen, parent=None) -> tuple:
     """K3 at the serving and training shapes, K4 at the training shapes, of ViT-B/32 at
-    224 px (T = 50, one block a head) and at 384 px (T = 145, the head form), timed, with
-    the form each took and, for the head forms, their blocks an SM; then both at T = 577
-    (768 px, key tiles), correctness only. The bound is the function's own work, not the
+    224 px (T = 50, one block a head) and at 384 px (T = 145, the head form), and K3 at
+    DINOv2-g/14's serving shape (T = 261, 24 heads, key tiles), timed, with the form each
+    took and, for the head forms, their blocks an SM; then both at T = 577 (768 px, key
+    tiles), correctness only. The bound is the function's own work, not the
     kernels' extra passes. With `parent` (a bound library of an earlier ``attention.cu``),
     K3 at both 384 px shapes and K4 at the 384 px training shape, in bf16 and f32, also
     against the parent's, in turns."""
@@ -496,11 +501,13 @@ def check_attention(gen, parent=None) -> tuple:
         fused_attention_reference,
     )
 
-    h, d = 12, 64  # ViT-B/32
+    d = 64
     k3, k4 = {}, {}
-    for phase, b, t in (("serve", SERVE_BATCH, 50), ("train", TRAIN_BATCH, 50),
-                        ("serve384", SERVE_384_BATCH, T_384),
-                        ("train384", TRAIN_384_CLIPS * FRAMES, T_384), ("check577", 2, 577)):
+    for phase, b, t, h in (("serve", SERVE_BATCH, 50, 12), ("train", TRAIN_BATCH, 50, 12),
+                           ("serve384", SERVE_384_BATCH, T_384, 12),
+                           ("train384", TRAIN_384_CLIPS * FRAMES, T_384, 12),
+                           ("dinov2_serve", SERVE_BATCH, T_DINOV2, 24),
+                           ("check577", 2, 577, 12)):
         timed = phase != "check577"
         for dt in (torch.float32, torch.bfloat16):
             name = f"{phase}_{DT_NAMES[dt]}"
@@ -535,7 +542,7 @@ def check_attention(gen, parent=None) -> tuple:
             log(f"K3 attention {name} {[b, t, h * d]} H={h}: max abs error {err} (atol "
                 f"{ATTENTION_ATOL[dt]}), relative L2 {err_l2} ({ATTENTION_REL_L2[dt]}); "
                 f"{json.dumps(k3.get(name))}")
-            if phase.startswith("serve"):
+            if "serve" in phase:
                 continue
 
             path = attention_bwd_path(t, d, dt)

@@ -35,6 +35,7 @@ from r3m_tpu_torch.models.distilbert import (
     config_from_params,
     distilbert_config_from_state,
 )
+from r3m_tpu_torch.models import dinov2
 from r3m_tpu_torch.models.r3m import R3MConfig, R3MModel
 from r3m_tpu_torch.models.resnet import RESNET_SPECS
 from r3m_tpu_torch.models.vit import require_b32_geometry, vit_config_from_state
@@ -58,15 +59,22 @@ def detect_resnet_size(sd: StateDict, prefix: str = "") -> int:
     return 34 if n == 6 else 18
 
 
-def convnet_state(sd: StateDict) -> Tuple[Dict[str, Any], int, Optional[int]]:
+def convnet_state(sd: StateDict) -> Tuple[Dict[str, Any], Any, Optional[int]]:
     """The backbone of a reference R3M state dict: ``(state dict, size, image size)``.
 
     Strips ``module.`` and ``convnet.``; the rest (a language head) is left out. `size`
     is 0 for an HF ViT, whose crop size comes from its position table; for a ResNet the
-    image size is None.
+    image size is None. An HF ``Dinov2WithRegistersModel`` state dict, under
+    ``convnet.`` or as HF saves it, gives `size` ``"dinov2_vitg14_reg"`` and no image
+    size (its position table is resized to any grid).
     """
     sd = strip_prefix(dict(sd))
     enc = {k[len("convnet."):]: v for k, v in sd.items() if k.startswith("convnet.")}
+    if not enc and "embeddings.register_tokens" in sd:
+        enc = sd
+    if "embeddings.register_tokens" in enc:
+        dinov2.dinov2_config_from_state(enc)  # raises for what is not DINOv2's layout
+        return enc, dinov2.NAME, None
     if "embeddings.cls_token" in enc:
         vcfg = vit_config_from_state(enc)
         require_b32_geometry(vcfg)

@@ -7,7 +7,9 @@ state: the backbone ``convnet`` with its BatchNorm statistics and, when ``langwe
 the reward head ``lang_rew``. `r3m_embed` maps images to features in eval or train mode;
 `safe_l2_norm` and `sim` are the losses' similarity. `R3MEncoder` is what
 `r3m_tpu_torch.load_r3m` returns: NCHW images in [0, 255] in, ``[B, out_dim]`` f32
-embeddings out, with BatchNorm folded once for ResNets.
+embeddings out, with BatchNorm folded once for ResNets. Besides R3M's own backbones it
+serves DINOv2-g/14 with registers (``size="dinov2_vitg14_reg"``,
+`r3m_tpu_torch.models.dinov2`), a frozen encoder that is not trained here.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from r3m_tpu_torch.models import graphs
+from r3m_tpu_torch.models import dinov2, graphs
 from r3m_tpu_torch.models.language_reward import LanguageReward
 from r3m_tpu_torch.models.resnet import (
     ResNet,
@@ -62,7 +64,7 @@ class R3MConfig:
     `packed_bn` (a TPU memory layout with the same math) is read by nothing.
     """
 
-    size: int = 34  # 18 | 34 | 50 | 0 (ViT-B/32)
+    size: int = 34  # 18 | 34 | 50 | 0 (ViT-B/32), or the name "dinov2_vitg14_reg"
     hidden_dim: int = 1024
     l2weight: float = 1e-5
     l1weight: float = 1e-5
@@ -82,26 +84,39 @@ class R3MConfig:
     vit_fused_attn: Any = "auto"
 
     def __post_init__(self):
-        if self.size == 0 and self.remat != "none":
+        if self.backbone != "resnet" and self.remat != "none":
             raise ValueError(
                 "remat is a ResNet-only activation-memory lever; "
-                f"remat={self.remat!r} has no effect on size=0 (ViT-B/32)"
+                f"remat={self.remat!r} has no effect on size="
+                + ("0 (ViT-B/32)" if self.size == 0 else f"{self.size} (a transformer)")
             )
         if self.vit_fused_attn not in ("auto", False, True, "batched"):
             raise ValueError(
                 "vit_fused_attn must be 'auto', false, true, or 'batched'; "
                 f"got {self.vit_fused_attn!r}"
             )
-        if self.size != 0 and self.vit_fused_attn not in (False, "auto"):
+        if self.backbone != "vit" and self.vit_fused_attn not in (False, "auto"):
             raise ValueError(
                 "vit_fused_attn is a ViT-only lever; it has no effect on "
-                f"size={self.size} (ResNet has no attention)"
+                f"size={self.size} ("
+                + ("ResNet has no attention)" if self.backbone == "resnet"
+                   else "its attention always runs K3)")
             )
 
     @property
-    def out_dim(self) -> int:
+    def backbone(self) -> str:
+        """The kind of backbone `size` names: "resnet", "vit" or "dinov2"."""
         if self.size == 0:
+            return "vit"
+        return "dinov2" if self.size == dinov2.NAME else "resnet"
+
+    @property
+    def out_dim(self) -> int:
+        """The published backbone's width (a DINOv2 encoder's own is its weights')."""
+        if self.backbone == "vit":
             return B32.dim
+        if self.backbone == "dinov2":
+            return dinov2.G14_REG.dim
         return resnet_out_dim(self.size)
 
     @property
@@ -112,7 +127,7 @@ class R3MConfig:
 
     @property
     def norm_stats(self) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
-        if self.size == 0:
+        if self.backbone == "vit":
             return VIT_MEAN, VIT_STD
         return IMAGENET_MEAN, IMAGENET_STD
 
@@ -122,7 +137,10 @@ class R3MConfig:
 
 
 def build_convnet(cfg: R3MConfig) -> nn.Module:
-    """The backbone module `cfg` names, with freshly drawn weights."""
+    """The backbone module `cfg` names, with freshly drawn weights (DINOv2 at its
+    published widths)."""
+    if cfg.backbone == "dinov2":
+        return dinov2.Dinov2()
     if cfg.size == 0:
         if cfg.image_size % B32.patch_size:
             raise ValueError(
@@ -178,11 +196,12 @@ def r3m_embed(
     running ones in place; the ViT has no BatchNorm and runs the same forward. With
     `bn_group` (the data-parallel step's process group) ResNet BatchNorm takes its batch
     statistics over every rank's rows. ``cfg.remat="conv_saved"`` trains a ResNet with
-    fewer activations kept for the backward (`ResNet._forward_conv_saved`).
+    fewer activations kept for the backward (`ResNet._forward_conv_saved`). DINOv2, like
+    the ViT, runs one forward in both modes.
     """
     x = obs if prenormalized else _preprocess(cfg, obs)
     x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-    if cfg.size == 0:
+    if cfg.backbone != "resnet":
         return convnet(x, compute_dtype=cfg.torch_compute_dtype)
     return convnet(x.to(cfg.torch_compute_dtype), train=train, bn_group=bn_group,
                    remat=cfg.remat)
@@ -247,7 +266,9 @@ class R3MEncoder(nn.Module):
     ``[B, out_dim]`` f32 embeddings on its device.
 
     `state_dict`: the backbone's weights under the reference's torch names (torchvision
-    ResNet or HF ViTModel, without the ``convnet.`` prefix); None keeps fresh weights.
+    ResNet, HF ViTModel or HF Dinov2WithRegistersModel, without the ``convnet.`` prefix);
+    None keeps fresh weights. A DINOv2 encoder takes its widths from the state dict and
+    holds its tensors as they are (moved to the device), drawing no fresh weights.
     `precision`: ``"parity"`` (default) is f32 with TF32 off for convolutions and
     products, switched off only while the forward runs. ``"fast"`` folds in f32, runs the
     convolution/product stack in bfloat16 and returns f32.
@@ -284,9 +305,12 @@ class R3MEncoder(nn.Module):
         self.mesh = mesh
         self.cfg = cfg
         self.precision = precision
-        convnet = build_convnet(cfg)
-        if state_dict is not None:
-            convnet.load_state_dict(state_dict)
+        if cfg.backbone == "dinov2" and state_dict is not None:
+            convnet = dinov2.dinov2_from_state(state_dict)
+        else:
+            convnet = build_convnet(cfg)
+            if state_dict is not None:
+                convnet.load_state_dict(state_dict)
         self.convnet = convnet.to(self.devices[0]).eval()
         self._replicas = None  # the serving weights, one a device: folded trees or ViTs
         self._folded_src = None
@@ -299,6 +323,8 @@ class R3MEncoder(nn.Module):
 
     @property
     def outdim(self) -> int:
+        if self.cfg.backbone == "dinov2":
+            return self.convnet.out_dim
         return self.cfg.out_dim
 
     @property
@@ -311,11 +337,11 @@ class R3MEncoder(nn.Module):
 
     def refold(self):
         """Recompute the serving weights of every device from the current parameters:
-        the BN-folded tree of a ResNet, the ViT itself (copied to the other devices).
-        Drops every CUDA graph, which read the weights it replaces."""
+        the BN-folded tree of a ResNet, a transformer itself (copied to the other
+        devices). Drops every CUDA graph, which read the weights it replaces."""
         self._graphs.clear()
         devices = (self.device,) + self.devices[1:]
-        if self.cfg.size == 0:
+        if self.cfg.backbone != "resnet":
             replicas = [self.convnet] + [copy.deepcopy(self.convnet).to(d) for d in devices[1:]]
         else:
             with torch.inference_mode():
@@ -368,8 +394,8 @@ class R3MEncoder(nn.Module):
                              f"{n} devices")
         fast = self.precision == "fast"
         precision_scope = contextlib.nullcontext() if fast else full_f32()
-        # the ViT's replicas exist only on a mesh of several devices
-        replicate = self.cfg.size != 0 or n > 1
+        # a transformer's replicas exist only on a mesh of several devices
+        replicate = self.cfg.backbone == "resnet" or n > 1
         with span(ENCODER_CHECK):
             if replicate and self._stale():
                 self.refold()
@@ -439,7 +465,7 @@ class R3MEncoder(nn.Module):
         return graphs.Graphed(replay, static_in, static_out, weights, k1)
 
     def _embed(self, weights, obs: torch.Tensor, fast: bool) -> torch.Tensor:
-        if self.cfg.size == 0:
+        if self.cfg.backbone != "resnet":
             cfg = self.cfg
             if fast:
                 cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")

@@ -144,7 +144,7 @@ def create_train_state(
     `r3m_init` from `seed`, a new optimizer, step 0, and a generator seeded with `seed`."""
     device = resolve_device(device)
     model = (model if model is not None else r3m_init(cfg, seed)).to(device)
-    if cfg.size != 0:
+    if cfg.backbone == "resnet":
         model.convnet.to(memory_format=torch.channels_last)
     return TrainState(
         model=model,

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from r3m_tpu_torch.models.dinov2 import NAME as DINOV2_NAME
+from r3m_tpu_torch.models.dinov2 import Dinov2, Dinov2Config
 from r3m_tpu_torch.models.distilbert import DistilBert, DistilBertConfig
 from r3m_tpu_torch.models.r3m import R3MConfig, R3MEncoder, r3m_init
 from r3m_tpu_torch.ops.attention import (
@@ -511,6 +513,33 @@ def test_encoder_on_the_card_matches_the_cpu(gen, size):
     obs = np.random.default_rng(0).integers(0, 256, (2, 3, 48, 80), dtype=np.uint8)
     got, want = cuda(obs).cpu(), cpu(obs)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+# DINOv2 at dim 128 (two heads of 64), 196 px: 1 + 2 + 14 * 14 = 199 tokens, past the 176
+# that one block a head takes, so K3 runs in key tiles. Card against CPU: f32 to the order
+# of f32 sums over two layers; bf16 on the card against f32 to bf16's rounding (2^-9 a
+# product, ~0.5% of an embedding after two layers on the CPU).
+DINOV2_TINY = Dinov2Config(dim=128, n_layers=2, n_heads=2, ffn_dim=344, n_registers=2, grid=4)
+DINOV2_GAP = {"parity": 1e-4, "fast": 2e-2}
+
+
+@pytest.mark.parametrize("precision", ["parity", "fast"])
+def test_dinov2_on_the_card_matches_the_cpu_through_key_tiles(gen, precision):
+    assert attention_fwd_path(199, 64, torch.bfloat16) == "tiles"
+    assert attention_fwd_path(261, 64, torch.bfloat16) == "tiles"  # DINOv2-g/14 at 224 px
+    torch.manual_seed(0)
+    sd = Dinov2(DINOV2_TINY).state_dict()
+    for name, t in sd.items():  # a trained model's LayerScale, not all ones
+        if name.endswith("lambda1"):
+            t.uniform_(0.1, 1.0)
+    cfg = R3MConfig(size=DINOV2_NAME, image_size=196)
+    obs = np.random.default_rng(0).integers(0, 256, (4, 3, 196, 196), dtype=np.uint8)
+    want = R3MEncoder(cfg, sd, device="cpu")(obs)
+    before = fused_attention_fwd.launches
+    got = R3MEncoder(cfg, sd, precision=precision)(obs).cpu()
+    assert fused_attention_fwd.launches - before == DINOV2_TINY.n_layers
+    gap = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    assert gap <= DINOV2_GAP[precision]
 
 
 @pytest.mark.parametrize("size,image_size", [(18, 32), (0, 64)])
