@@ -16,8 +16,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
 1. print the card's name and power limit (nvidia-smi);
 2. build every kernel of ``r3m_tpu_torch/csrc`` from the checkout's sources, and print
    what ``-Xptxas -v`` says of the maxpool, the bf16 and the f32 attention kernels
-   (registers, shared memory, spills); the maxpool and f32 attention kernels and the bf16
-   backward's one-block form past 128 tokens must neither spill nor use a stack frame;
+   (registers, shared memory, spills); the maxpool and f32 attention kernels, the bf16
+   backward's one-block form past 128 tokens and the dense GEMMs must neither spill nor
+   use a stack frame;
 3. each kernel against its plain PyTorch version on the card, at the shapes the serving
    and training paths give it, f32 and bf16, with the times of the kernel, the plain
    version and one library call, and the bound:
@@ -30,7 +31,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    request (``dinov2_serve``: 256 frames of T = 261 in 24 heads of 64, key tiles), and at
    T = 577 (768 px, key tiles, correctness only), with the form K3 and K4 took at each
    (`attention_fwd_path`, `attention_bwd_path`) and the head forms' blocks an SM
-   (`attention_head_blocks_per_sm`); under grad a CUDA call carries
+   (`attention_head_blocks_per_sm`); the fused `dense` product (`check_dense`) against
+   the unfused order at ViT-B/32's and DINOv2-g/14's widths (dx at ViT's training rows),
+   within one bf16 step, timed beside the f32-result product, with cuBLASLt's answer on an
+   f32 bias with a bf16 output; under grad a CUDA call carries
    a grad_fn and its backward is the kernel; each row also gives the kernel's time over
    the library call's (`library_ratio`), the bound over the kernel's time
    (`bound_share`) and the bytes the function must move over the kernel's time
@@ -48,7 +52,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    ``model.pt`` through the embed CLI over 130 PNG files of 240x320 (batches of 64 and a
    tail of 2), parity and fast: frames/s of the whole CLI, the paths in order, K1 once a
    batch, parity against `R3MEncoder` on the same decoded arrays (cosine > 0.9999);
-5. ViT-B/32 serving, the same, with K3's launches, and its fast-vs-parity cosine again
+5. ViT-B/32 serving, the same, with K3's launches and the fused `dense` product's (73 a
+   fast request, none in parity), and its fast-vs-parity cosine again
    with the fast forward's attention through K3's plain version on the card (K3's share
    of the bf16 path's distance from parity); then ViT-B/32 at 384 px (T = 145), one
    request of 64 frames; then mesh serving: ``load_r3m_from_files(...,
@@ -65,14 +70,14 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
 7. snapshot and resume: that state saved with ``save_train_snapshot`` and loaded into a
    fresh state of another seed; the next step of both, crops and negatives fixed, gives
    the same loss, through K1 and K2; save and load seconds, the snapshot's bytes;
-8. the ViT-B/32 pretraining step, the same as 6, with 12 launches of K3 and of K4 a step;
-   then at 384 px, 16 clips, 3 timed steps, in bf16 (``train_vit_b32_384``) and in f32
+8. the ViT-B/32 pretraining step, the same as 6, with 12 launches of K3 and of K4 a step
+   and 73 of the fused `dense` product and of its dx; then at 384 px, 16 clips, 3 timed steps, in bf16 (``train_vit_b32_384``) and in f32
    (``train_vit_b32_384_f32``: K3 and K4 in the f32 head form);
 9. the ViT-B/32 pretraining step in f32, the same but for 5 timed steps, with no TF32
    flag set by this script (the step runs in true f32 itself, as the 384 px f32 step of
    8 does): the f32 K3 and K4 at full width, 12 launches of each a step; then that state
    saved and served through ``load_r3m_from_snapshot`` in fast precision, against the
-   live model in parity;
+   live model in parity (K3 12 times, the fused `dense` 73);
 10. reward scoring (`R3MRewardModel`): the ResNet-50 state of 6 saved as an ``.npz`` with a
    base-geometry DistilBERT (``distilbert.npz`` with ``bert_config`` metadata, the training
    phases' frozen encoder) and a vocab, scored in parity and fast precision: 32 (start,
@@ -600,12 +605,88 @@ def check_attention(gen, parent=None) -> tuple:
     return k3, k4
 
 
+# `dense` at the widths of its bf16 callers: (rows, N, K) of DINOv2-g/14's request of 256
+# frames (T = 261: q, k, v and the attention's output, one shape; the SwiGLU's weights_in
+# and weights_out) and of ViT-B/32's (T = 50: q, k, v and the output; fc1; fc2).
+DENSE_SHAPES = {
+    "dinov2_qkvo": (SERVE_BATCH * T_DINOV2, 1536, 1536),
+    "dinov2_weights_in": (SERVE_BATCH * T_DINOV2, 8192, 1536),
+    "dinov2_weights_out": (SERVE_BATCH * T_DINOV2, 1536, 4096),
+    "vit_qkvo": (SERVE_BATCH * 50, 768, 768),
+    "vit_fc1": (SERVE_BATCH * 50, 3072, 768),
+    "vit_fc2": (SERVE_BATCH * 50, 768, 3072),
+}
+DENSE_MAX_STEPS = 1.0  # the fused route against the unfused order, in bf16 steps
+# ViT-B/32's `dense` calls a forward: q, k, v, the attention's output, fc1 and fc2 of 12
+# layers, and the pooler
+DENSE_PER_VIT_FORWARD = 12 * 6 + 1
+
+
+def check_dense(gen) -> dict:
+    """The fused `dense` product (``r3m_tpu_torch/ops/dense.py``) against the unfused order
+    it replaces (the product with an f32 result, the f32 bias add, the cast back), at
+    `DENSE_SHAPES`: both times, the product alone with an f32 result (the GEMM the unfused
+    order starts with), the bound, and the largest difference in bf16 steps, which must
+    stay within one; the same for dx at ViT-B/32's training rows; and cuBLASLt's answer to
+    whether it takes an f32 bias with a bf16 output, which decided the route."""
+    from r3m_tpu_torch.ops.dense import bf16_steps, cublaslt_takes_f32_bias, dense_dx, dense_fwd
+
+    status = cublaslt_takes_f32_bias()
+    rows = {"cublaslt_f32_bias_bf16_d": status == 0, "cublaslt_status": status,
+            "route": "cutlass"}
+    log(f"dense: cuBLASLt's heuristic for an f32 bias with a bf16 D: status {status}")
+    for name, (m, n, k) in DENSE_SHAPES.items():
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+        b = torch.randn((n,), generator=gen, device="cuda")
+
+        def unfused():
+            return (torch.mm(x, w.t(), out_dtype=torch.float32) + b).to(torch.bfloat16)
+
+        got, want = dense_fwd(x, w, b), unfused()
+        steps = bf16_steps(got, want)
+        bound, by = bound_ms(nbytes(x, w, b, got), 2 * m * n * k, torch.bfloat16)
+        r = {"shape": [m, n, k], "fused_ms": time_ms(lambda: dense_fwd(x, w, b)),
+             "unfused_ms": time_ms(unfused),
+             "gemm_f32_ms": time_ms(lambda: torch.mm(x, w.t(), out_dtype=torch.float32)),
+             "bound_ms": bound, "bound_by": by, "max_bf16_steps": steps}
+        r["bound_share"] = bound / r["fused_ms"]
+        r["unfused_over_fused"] = r["unfused_ms"] / r["fused_ms"]
+        r["fused_over_gemm_f32"] = r["fused_ms"] / r["gemm_f32_ms"]
+        if name.startswith("vit"):  # dx at the training step's rows
+            g = torch.randn((TRAIN_BATCH * 50, n), generator=gen, device="cuda").bfloat16()
+
+            def dx_unfused():
+                return torch.mm(g, w, out_dtype=torch.float32).to(torch.bfloat16)
+
+            r["dx_shape"] = [TRAIN_BATCH * 50, n, k]
+            r["dx_max_bf16_steps"] = bf16_steps(dense_dx(g, w), dx_unfused())
+            r["dx_ms"] = time_ms(lambda: dense_dx(g, w))
+            r["dx_unfused_ms"] = time_ms(dx_unfused)
+            steps = max(steps, r["dx_max_bf16_steps"])
+            del g
+        rows[name] = r
+        log(f"dense {name}: {json.dumps(r)}")
+        if steps > DENSE_MAX_STEPS:
+            raise AssertionError(f"dense {name}: {steps} bf16 steps from the unfused order")
+        del x, w, b, got, want
+    return rows
+
+
 def counters():
     from r3m_tpu_torch.ops.attention import fused_attention_bwd, fused_attention_fwd
     from r3m_tpu_torch.ops.pool import maxpool_3x3s2_bwd, maxpool_3x3s2_fwd
 
+    from r3m_tpu_torch.ops.dense import dense_dx, dense_fwd
+
     return {"K1": maxpool_3x3s2_fwd, "K2": maxpool_3x3s2_bwd,
-            "K3": fused_attention_fwd, "K4": fused_attention_bwd}
+            "K3": fused_attention_fwd, "K4": fused_attention_bwd,
+            "D": dense_fwd, "Ddx": dense_dx}
+
+
+def counts(**given) -> dict:
+    """Every counter of `counters` at 0 but those given."""
+    return {k: given.get(k, 0) for k in counters()}
 
 
 def reset_counts() -> None:
@@ -630,10 +711,11 @@ def cosine_rows(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
 
 def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
           min_cosine: float, tmp: str, batch: int = SERVE_BATCH,
-          requests: int = SERVE_REQUESTS, hw: int = 224) -> dict:
+          requests: int = SERVE_REQUESTS, hw: int = 224, dense: int = 0) -> dict:
     """Serve `requests` of `batch` frames of `hw` px (and one of 64 240x320 frames)
     through load_r3m_from_files; return the launches and frames/s. `min_cosine` bounds
-    fast against parity, row by row."""
+    fast against parity, row by row. The fused `dense` product must launch `dense` times a
+    fast (bf16) request, and never in parity (f32)."""
     import r3m_tpu_torch
 
     path = os.path.join(tmp, f"{name}.pt")
@@ -644,9 +726,9 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
     odd = rng.integers(0, 256, (64, 3, 240, 320), dtype=np.uint8)
 
     reset_counts()
-    out, fps, by_precision = {}, {}, {}
+    out, fps, by_precision, dense_by_precision = {}, {}, {}, {}
     for precision in ("parity", "fast"):
-        before = read_counts()[kernel]
+        before, dense_before = read_counts()[kernel], read_counts()["D"]
         enc = r3m_tpu_torch.load_r3m_from_files(path, precision=precision)
         first = enc(frames[0])  # warms cuDNN's algorithm choice
         torch.cuda.synchronize()
@@ -663,11 +745,16 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
                 raise AssertionError(f"{name} {precision}: non-finite embeddings")
         out[precision] = (first, e_odd)
         by_precision[precision] = read_counts()[kernel] - before
+        dense_by_precision[precision] = read_counts()["D"] - dense_before
         del enc
     launches = read_counts()
     if not all(by_precision.values()):
         raise AssertionError(f"{name}: a precision's serving path never launched {kernel}: "
                              f"{by_precision}")
+    want = {"parity": 0, "fast": dense * (len(frames) + 2)}
+    if dense_by_precision != want:
+        raise AssertionError(f"{name}: the fused dense product launched {dense_by_precision} "
+                             f"times, expected {want}")
 
     cos = min(cosine_rows(out["fast"][i], out["parity"][i]).min() for i in (0, 1))
     if not cos >= min_cosine:
@@ -686,6 +773,7 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
     result = {
         "launches": launches,
         f"{kernel}_launches_by_precision": by_precision,
+        "D_launches_by_precision": dense_by_precision,
         "requests": 2 * (1 + len(frames) + 1),
         "frames_per_s_parity": fps["parity"],
         "frames_per_s_fast": fps["fast"],
@@ -944,8 +1032,10 @@ def train(name: str, size: int, bert, gen, dtype: str = "bfloat16",
         raise AssertionError(f"{name} train: non-finite loss {losses}")
     if state.step != steps:
         raise AssertionError(f"{name} train: step {state.step} after {steps} steps")
-    want = ({"K1": steps, "K2": steps, "K3": 0, "K4": 0} if size else
-            {"K1": 0, "K2": 0, "K3": 12 * steps, "K4": 12 * steps})
+    # bf16 ViT: every `dense` (six a layer and the pooler) on the fused route, dx too
+    dense = DENSE_PER_VIT_FORWARD * steps if dtype == "bfloat16" else 0
+    want = (counts(K1=steps, K2=steps) if size else
+            counts(K3=12 * steps, K4=12 * steps, D=dense, Ddx=dense))
     if launches != want:
         raise AssertionError(f"{name} train: launches {launches}, expected {want}")
     if size and not all(not torch.equal(v, stats0[k]) for k, v in state.batch_stats.items()):
@@ -1050,8 +1140,9 @@ def snapshot_serve(name: str, kept) -> dict:
     log(f"{name} snapshot serve: {json.dumps(result)}")
     if not (got.shape == want.shape and torch.isfinite(got).all() and cos >= 0.9995):
         raise AssertionError(f"{name}: served snapshot cosine {cos} < 0.9995")
-    if launches["K3"] != 12:
-        raise AssertionError(f"{name} snapshot serve: launches {launches}, expected K3 = 12")
+    if launches["K3"] != 12 or launches["D"] != DENSE_PER_VIT_FORWARD:
+        raise AssertionError(f"{name} snapshot serve: launches {launches}, expected K3 = 12 "
+                             f"and D = {DENSE_PER_VIT_FORWARD}")
     return result
 
 
@@ -1424,7 +1515,7 @@ def ego4d_train(bert, tmp: str, device_only: dict) -> dict:
                              f"{(EGO4D_STEPS_A, EGO4D_STEPS_A)}")
     if ws.global_step != steps:
         raise AssertionError(f"ego4d: step {ws.global_step} after phase B, expected {steps}")
-    want = {"K1": steps + evals, "K2": steps, "K3": 0, "K4": 0}
+    want = counts(K1=steps + evals, K2=steps)
     if launches != want:
         raise AssertionError(f"ego4d: launches {launches}, expected {want}")
 
@@ -1582,7 +1673,7 @@ def dp_train() -> dict:
         if i == 2:
             launches, tally = read_counts(), read_tally()
         states[path] = state
-    if launches != {"K1": 2 * n, "K2": 2 * n, "K3": 0, "K4": 0}:
+    if launches != counts(K1=2 * n, K2=2 * n):
         raise AssertionError(f"dp_train_resnet50: launches {launches} in {2 * n} steps")
 
     profiles = {path: profile_steps(step, states[path], batch) for path, step in steps.items()}
@@ -1637,7 +1728,7 @@ def dp_gloo2_child(out: str) -> None:
     rank, world, backend = dp_rank()
     if (world, backend) != (2, "gloo"):
         raise AssertionError(f"dp_train_gloo2: world {world}, backend {backend}")
-    result = {"launches": {"K1": 0, "K2": 0, "K3": 0, "K4": 0}}
+    result = {"launches": counts()}
     for name, size, hw, clips in (("resnet18_64", 18, 64, 64), ("vit_b32_224", 0, 224, 16)):
         cfg = R3MConfig(size=size, langweight=1.0, tcnweight=1.0, l1weight=1e-5,
                         num_negatives=3, lr=1e-6, compute_dtype="float32", image_size=hw)
@@ -1742,7 +1833,7 @@ def ego4d_dp(root: str, bert_path: str, vocab_path: str, work: str) -> dict:
               "final_train_loss": float(rows[-1]["full_loss"])}
     log(f"ego4d_train_dp: {json.dumps(result)}")
     line = "[distributed] rank 0/1 (nccl, cuda:0"
-    want = {"K1": EGO4D_DP_STEPS + 1, "K2": EGO4D_DP_STEPS, "K3": 0, "K4": 0}
+    want = counts(K1=EGO4D_DP_STEPS + 1, K2=EGO4D_DP_STEPS)
     if not (line in printed.getvalue() and ws.global_step == EGO4D_DP_STEPS
             and snapshots == ["snapshot_1.npz"] and rows and launches == want
             and np.isfinite(result["final_train_loss"])):
@@ -1789,7 +1880,7 @@ def dp_conv_saved() -> dict:
     log(f"dp_train_resnet50_conv_saved: {json.dumps(result)}")
     if tallies["conv_saved"] != tallies["none"]:
         raise AssertionError(f"dp_train_resnet50_conv_saved: collectives {tallies}")
-    if launches != {"K1": 1, "K2": 1, "K3": 0, "K4": 0}:
+    if launches != counts(K1=1, K2=1):
         raise AssertionError(f"dp_train_resnet50_conv_saved: launches {launches}")
     return result
 
@@ -1855,7 +1946,7 @@ def train_conv_saved(bert, gen) -> dict:
             launches = read_counts()
         if not np.isfinite(loss):
             raise AssertionError(f"train_resnet50_conv_saved {path}: loss {loss}")
-    if launches != {"K1": 2 * n, "K2": 2 * n, "K3": 0, "K4": 0}:
+    if launches != counts(K1=2 * n, K2=2 * n):
         raise AssertionError(f"train_resnet50_conv_saved: launches {launches} in {2 * n} "
                              "steps")
     if not all(not torch.equal(v, s) for v, s in zip(
@@ -2002,7 +2093,7 @@ def mesh_serving(tmp: str) -> dict:
 
     frames = np.random.default_rng(SEED + 1).integers(0, 256, (SERVE_BATCH, 3, 224, 224),
                                                       dtype=np.uint8)
-    launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    launches = counts()
     result = {}
     for name in ("resnet50", "vit_b32"):
         path = os.path.join(tmp, f"{name}.pt")
@@ -2080,6 +2171,10 @@ def main() -> int:
     report = ptxas_report(built["attention"][1], BF16_NO_SPILL_KERNELS)
     if not report or spills(report):
         raise AssertionError(f"{BF16_NO_SPILL_KERNELS}: ptxas reports {spills(report)}")
+    report = ptxas_report(built["dense"][1], ("GemmUniversal",))
+    log("ptxas, the dense GEMMs:\n" + "\n".join(line[:160] for line in report))
+    if not report or spills(report):
+        raise AssertionError(f"the dense GEMMs: ptxas reports {spills(report)}")
     parent = None
     if args.parent_attention:
         parent = load_parent_attention(os.path.abspath(args.parent_attention))
@@ -2089,6 +2184,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1_rows, k2_rows = check_pool(gen)
     k3_rows, k4_rows = check_attention(gen, parent)
+    dense_rows = check_dense(gen)
     clock("kernel checks")
 
     torch.manual_seed(SEED)
@@ -2113,14 +2209,15 @@ def main() -> int:
         # JAX package's fast path does; with these N(0, 0.02) weights both packages'
         # fast paths land at cosine ~0.9999 against parity on the CPU, so the bound is
         # looser than the ResNet's.
-        paths["serve_vit_b32"] = serve("vit_b32", ViT(), 768, "K3", 0.9995, tmp)
+        paths["serve_vit_b32"] = serve("vit_b32", ViT(), 768, "K3", 0.9995, tmp,
+                                       dense=DENSE_PER_VIT_FORWARD)
         paths["serve_vit_b32"]["fast_cosine_split"] = fast_cosine_split(
             os.path.join(tmp, "vit_b32.pt"))
         clock("serve_vit_b32")
         # ViT-B/32 at 384 px: T = 145, K3 in its head form (bf16 fast, f32 parity)
         paths["serve_vit_b32_384"] = serve(
             "vit_b32_384", ViT(dataclasses.replace(B32, image_size=384)), 768, "K3", 0.9995,
-            tmp, batch=SERVE_384_BATCH, requests=1, hw=384)
+            tmp, batch=SERVE_384_BATCH, requests=1, hw=384, dense=DENSE_PER_VIT_FORWARD)
         clock("serve_vit_b32_384")
         if parent is not None:
             paths["serve_vit_b32_384"]["against_parent"] = serve_against_parent(
@@ -2209,6 +2306,12 @@ def main() -> int:
         entry("K4", "fused_attention_bwd", "r3m_tpu_torch/csrc/attention.cu",
               "r3m_tpu/ops/attention.py:239", k4_rows),
     ]
+    # the fused dense product (bf16 ViT serving and training), which replaces no TPU kernel
+    for key, name in (("D", "dense_fwd"), ("Ddx", "dense_dx")):
+        by_path = {p: r["launches"][key] for p, r in paths.items() if r["launches"][key]}
+        kernels.append({"name": name, "route": "cutlass", "source": "r3m_tpu_torch/csrc/dense.cu",
+                        "replaces": None, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, "rows": dense_rows})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: no path launched it")

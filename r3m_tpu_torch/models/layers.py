@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from r3m_tpu_torch.utils.profiling import DENSE_EPILOGUE, span
+from r3m_tpu_torch.ops.dense import dense_dx, dense_fwd, gemm_rows
+from r3m_tpu_torch.utils.profiling import DENSE_EPILOGUE, DENSE_FUSED, span
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
@@ -55,15 +56,65 @@ class _DenseLowPrecision(torch.autograd.Function):
         return dx, dw
 
 
+class _DenseFused(torch.autograd.Function):
+    """``round(x @ weight.T + bias)`` for a bf16 ``x [..., K]`` on the card, the f32
+    ``weight [N, K]`` cast to bf16 and the f32 ``bias [N]``, in one GEMM whose epilogue adds
+    the bias to the f32 accumulator and rounds once (`r3m_tpu_torch.ops.dense`). The rows
+    are flattened inside, so that no view adds a node to the autograd graph.
+
+    The output gradient arrives in bf16. dx comes from the same GEMM without a bias (f32
+    accumulation, one rounding), the weight's gradient in f32 from the f32-result GEMM, and
+    the bias's as the f32 sum of the gradient's rows: the numbers of `_DenseLowPrecision`
+    with the epilogue's autograd, but for the order of their sums.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        lead = x.shape[:-1]
+        x2 = gemm_rows(x.reshape(-1, x.shape[-1]))
+        w = weight.to(x.dtype, memory_format=torch.contiguous_format)
+        ctx.save_for_backward(x2, w)
+        ctx.lead = lead
+        return dense_fwd(x2, w, bias.to(torch.float32), lead)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1]).contiguous()
+        if g.data_ptr() % 16:
+            g = g.clone()
+        dx = dense_dx(g, w, ctx.lead) if ctx.needs_input_grad[0] else None
+        dw = _mm_f32(g.t(), x2) if ctx.needs_input_grad[1] else None
+        db = g.sum(dim=0, dtype=torch.float32) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """x @ w.T + b as the JAX ``dense`` computes it: the product in x.dtype with an f32
-    result, plus the f32 bias, and only then the cast back to x.dtype.
+    result, plus the f32 bias, and only then the rounding to x.dtype.
 
-    In bf16 that order matters: rounding the product before the bias add gives other
-    numbers. Differentiable in x, weight and bias.
+    In bf16 that order matters: rounding the product, or the bias, before the add gives
+    other numbers. Differentiable in x, weight and bias. The input decides the route:
+
+    - f32 anywhere: the f32 product, then the bias (the span ``r3m.dense.epilogue``);
+    - any other dtype on the card: the fused route (the span ``r3m.dense.fused``), the bias
+      added and the one rounding made inside the GEMM, `dense_fwd` counting its launches.
+      A view whose rows the GEMM cannot read in place is copied first (`gemm_rows`); a
+      dtype other than bf16, or K or N not a multiple of 8, raises a ValueError. With a
+      gradient to keep it runs as `_DenseFused`, else as one `dense_fwd` call;
+    - bf16 on the CPU: the unfused order, the product with an f32 result, then the f32
+      bias add and the cast back in passes of their own (``r3m.dense.epilogue``).
     """
     if x.dtype == torch.float32:
         out = torch.matmul(x, weight.t())
+    elif x.is_cuda:
+        with span(DENSE_FUSED):
+            if torch.is_grad_enabled() and (
+                    x.requires_grad or weight.requires_grad or bias.requires_grad):
+                return _DenseFused.apply(x, weight, bias)
+            return dense_fwd(gemm_rows(x.reshape(-1, x.shape[-1])),
+                             weight.to(x.dtype, memory_format=torch.contiguous_format),
+                             bias.to(torch.float32), x.shape[:-1])
     else:
         x2 = x.reshape(-1, x.shape[-1])
         out = _DenseLowPrecision.apply(x2, weight)

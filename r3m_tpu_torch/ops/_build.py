@@ -27,12 +27,18 @@ from typing import Callable, Dict, List, Tuple
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-KERNELS = ("maxpool", "attention")
+KERNELS = ("maxpool", "attention", "dense")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# Flags of one source alone, after `NVCC_FLAGS`: dense.cu is built from CUTLASS's headers
+# (``$CUTLASS_HOME/include``) and asks cuBLASLt, which the loaded PyTorch has already
+# brought into the process, one question.
+CUTLASS_INCLUDE = os.path.join(os.environ.get("CUTLASS_HOME", "/usr/local/cutlass"), "include")
+EXTRA_FLAGS = {"dense": ("-I", CUTLASS_INCLUDE, "--expt-relaxed-constexpr", "-DNDEBUG",
+                         "-lcublasLt")}
 DECODER_SOURCE = os.path.join(os.path.dirname(_PKG), "csrc", "jpeg_decoder.cpp")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-Wall", "-shared")  # csrc/Makefile
 CXX_LIBS = ("-ljpeg", "-lpthread")
@@ -56,6 +62,10 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _hashed_path(name: str, source: str, flags) -> str:
     with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(flags).encode())
@@ -64,7 +74,7 @@ def _hashed_path(name: str, source: str, flags) -> str:
 
 def library_path(name: str) -> str:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    return _hashed_path(name, os.path.join(CSRC, f"{name}.cu"), NVCC_FLAGS)
+    return _hashed_path(name, os.path.join(CSRC, f"{name}.cu"), _flags(name))
 
 
 def decoder_library_path() -> str:
@@ -123,7 +133,8 @@ def build(names=KERNELS) -> Dict[str, Tuple[str, str]]:
     fails.
     """
     def command(name):
-        return lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        return lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu"),
+                            *EXTRA_FLAGS.get(name, ())]
 
     return _compile({name: (library_path(name), command(name)) for name in names})
 

@@ -32,7 +32,9 @@ it is a shared null context, and costs one attribute read. The program's spans, 
   ``r3m.encoder.embed`` (each part's eager forward) or ``r3m.encoder.replay`` (the replay
   of the forward's CUDA graph, `r3m_tpu_torch.models.graphs`).
 - ``r3m.dense.epilogue``: the f32 bias add and the cast back of `dense` (the ViT's and
-  DINOv2's).
+  DINOv2's) where it runs unfused: in f32, and in bf16 on the CPU.
+- ``r3m.dense.fused``: one forward call of `dense` on the fused route (bf16 on the card:
+  the weight's cast and the GEMM that adds the bias and rounds once).
 - ``r3m.swiglu.gate``: DINOv2's ``silu(x1) * x2`` pass over the halves of ``weights_in``.
 - ``r3m.layerscale``: each of DINOv2's LayerScale products with its residual add.
 - ``r3m.workspace.input_wait``: the workspace's train loop waiting for its next batch on
@@ -65,13 +67,15 @@ ENCODER_H2D = "r3m.encoder.h2d"
 ENCODER_EMBED = "r3m.encoder.embed"
 ENCODER_REPLAY = "r3m.encoder.replay"
 DENSE_EPILOGUE = "r3m.dense.epilogue"
+DENSE_FUSED = "r3m.dense.fused"
 SWIGLU_GATE = "r3m.swiglu.gate"
 LAYERSCALE = "r3m.layerscale"
 WORKSPACE_INPUT_WAIT = "r3m.workspace.input_wait"
 STEP_PHASES = (STEP_AUGMENT, STEP_LANGUAGE, STEP_ENCODE, STEP_LOSS, STEP_BACKWARD,
                STEP_OPTIMIZER)
 SPANS = (STEP, *STEP_PHASES, ENCODER, ENCODER_CHECK, ENCODER_H2D, ENCODER_EMBED,
-         ENCODER_REPLAY, DENSE_EPILOGUE, SWIGLU_GATE, LAYERSCALE, WORKSPACE_INPUT_WAIT)
+         ENCODER_REPLAY, DENSE_EPILOGUE, DENSE_FUSED, SWIGLU_GATE, LAYERSCALE,
+         WORKSPACE_INPUT_WAIT)
 
 _OFF = contextlib.nullcontext()
 

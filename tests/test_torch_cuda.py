@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from r3m_tpu_torch.models import layers
 from r3m_tpu_torch.models.dinov2 import NAME as DINOV2_NAME
 from r3m_tpu_torch.models.dinov2 import Dinov2, Dinov2Config
 from r3m_tpu_torch.models.distilbert import DistilBert, DistilBertConfig
@@ -29,6 +30,7 @@ from r3m_tpu_torch.ops.attention import (
     fused_attention_fwd,
     fused_attention_reference,
 )
+from r3m_tpu_torch.ops.dense import bf16_steps, dense_dx, dense_fwd, gemm_rows
 from r3m_tpu_torch.ops.pool import (
     maxpool_3x3s2,
     maxpool_3x3s2_bwd,
@@ -502,6 +504,150 @@ def test_attention_kernel_rejects_a_head_too_long_for_shared_memory(gen):
     q = torch.randn(50 * 64 + 1, generator=gen, device="cuda").bfloat16()[1:].view(1, 50, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused_attention(q, q, q, 1)
+
+
+# (N, K) of every bf16 `dense` of ViT-B/32 (q, k, v and the output; fc1; fc2) and of
+# DINOv2-g/14 (q, k, v and the output; weights_in; weights_out), at a few hundred rows.
+DENSE_WIDTHS = [(768, 768), (3072, 768), (768, 3072), (1536, 1536), (8192, 1536),
+                (1536, 4096)]
+DENSE_ROWS = 300
+
+
+def _integers(gen, shape, dtype=torch.bfloat16):
+    """Integers in [-3, 3]: every product and every sum of a row is exact in f32."""
+    return torch.randint(-3, 4, shape, generator=gen, device="cuda").to(dtype)
+
+
+def _unfused(x2, weight, bias):
+    """`dense`'s unfused order on the card: the product with an f32 result, the f32 bias
+    added, the cast back."""
+    out = torch.mm(x2, weight.to(x2.dtype).t(), out_dtype=torch.float32)
+    return (out + bias).to(x2.dtype)
+
+
+@pytest.mark.parametrize("n,k", DENSE_WIDTHS)
+def test_fused_dense_is_the_unfused_order_on_integer_operands(gen, n, k):
+    """With integer operands and a bias of quarters the f32 sums are exact, so the one
+    rounding inside the GEMM must give the unfused order's bits, also for rows of a
+    longer stride (ViT's pooler reads the class token's row of each frame)."""
+    x = _integers(gen, (DENSE_ROWS, k))
+    w = _integers(gen, (n, k), torch.float32)
+    b = _integers(gen, (n,), torch.float32) + torch.randint(
+        0, 4, (n,), generator=gen, device="cuda") / 4
+    assert torch.equal(dense_fwd(x, w.bfloat16(), b), _unfused(x, w, b))
+    assert torch.equal(layers.dense(x.view(3, 100, k), w, b).view(DENSE_ROWS, n),
+                       _unfused(x, w, b))
+    tokens = _integers(gen, (DENSE_ROWS, 5, k))
+    cls = tokens[:, 0]
+    assert gemm_rows(cls) is cls
+    assert torch.equal(layers.dense(cls, w, b), _unfused(cls.contiguous(), w, b))
+
+
+def test_fused_dense_adds_the_bias_in_f32_before_its_one_rounding(gen):
+    """A product of 256 plus a bias of 1 + 2**-10 is 257.0009765625, which rounds up to
+    258 in bf16; a bias rounded to bf16 first (1) would give the tie 257, which rounds to
+    the even 256."""
+    x = torch.zeros((4, 8), device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros((8, 8), device="cuda")
+    x[:, 0], w[:, 0] = 16, 16
+    b = torch.full((8,), 1 + 2 ** -10, device="cuda")
+    want = torch.full((4, 8), 258.0, device="cuda", dtype=torch.bfloat16)
+    assert torch.equal(dense_fwd(x, w.bfloat16(), b), want)
+    assert torch.equal(layers.dense(x, w, b), want)
+    assert torch.equal((torch.mm(x, w.bfloat16().t()) + b.bfloat16()).float(),
+                       torch.full((4, 8), 256.0, device="cuda"))
+
+
+@pytest.mark.parametrize("n,k", DENSE_WIDTHS)
+def test_fused_dense_is_within_one_bf16_step_of_the_unfused_order(gen, n, k):
+    x = torch.randn((DENSE_ROWS, k), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+    b = torch.randn((n,), generator=gen, device="cuda")
+    assert bf16_steps(layers.dense(x, w, b), _unfused(x, w, b)) <= 1.0
+
+
+def _dense_grads(route, x, w, b, g):
+    """dx, dw and db of `dense` at (x, w, b) for the output gradient g, by `route`: the
+    fused Function, or the unfused order's Function and epilogue."""
+    x, w, b = (t.clone().requires_grad_(True) for t in (x, w, b))
+    if route == "fused":
+        out = layers._DenseFused.apply(x, w, b)
+    else:
+        out = (layers._DenseLowPrecision.apply(x, w) + b).to(x.dtype)
+    out.backward(g)
+    return x.grad, w.grad, b.grad
+
+
+@pytest.mark.parametrize("values", ["integers", "normal"])
+@pytest.mark.parametrize("n,k", [(3072, 768), (768, 3072), (8192, 1536)])
+def test_fused_dense_gradients_are_the_unfused_orders(gen, values, n, k):
+    """dx from the fused GEMM without a bias, dw from the f32-result GEMM, db as the f32
+    sum of the bf16 gradient: bit-equal to the unfused order's on integers, within one
+    bf16 step otherwise (another order of the same f32 sums)."""
+    if values == "integers":
+        x, w = _integers(gen, (DENSE_ROWS, k)), _integers(gen, (n, k), torch.float32)
+        b, g = _integers(gen, (n,), torch.float32), _integers(gen, (DENSE_ROWS, n))
+    else:
+        x = torch.randn((DENSE_ROWS, k), generator=gen, device="cuda").bfloat16()
+        w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+        b = torch.randn((n,), generator=gen, device="cuda")
+        g = torch.randn((DENSE_ROWS, n), generator=gen, device="cuda").bfloat16()
+    before = dense_dx.launches
+    got = _dense_grads("fused", x, w, b, g)
+    assert dense_dx.launches == before + 1
+    want = _dense_grads("unfused", x, w, b, g)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape
+        if values == "integers":
+            assert torch.equal(a, e)
+        else:
+            assert bf16_steps(a, e) <= 1.0
+
+
+def test_fused_dense_counts_its_launches_and_only_its_own(gen):
+    """One launch a call of a bf16 input on the card, also for a view whose rows are not
+    16-byte aligned (copied first); none for f32; a ValueError, and no launch, for K or N
+    not a multiple of 8 and for fp16."""
+    w = torch.randn((64, 64), generator=gen, device="cuda")
+    b = torch.randn((64,), generator=gen, device="cuda")
+    x = torch.randn((2, 10, 64), generator=gen, device="cuda").bfloat16()
+    fused = dense_fwd.launches
+    layers.dense(x, w, b)
+    assert dense_fwd.launches == fused + 1
+    layers.dense(x.float(), w, b)
+    assert dense_fwd.launches == fused + 1
+    wide = torch.randn((20, 72), generator=gen, device="cuda").bfloat16()
+    misaligned = wide[:, 1:65]
+    assert gemm_rows(misaligned) is not misaligned
+    assert torch.equal(layers.dense(misaligned, w, b), _unfused(misaligned.contiguous(), w, b))
+    assert dense_fwd.launches == fused + 2
+    refused = [
+        (torch.randn((20, 12), generator=gen, device="cuda").bfloat16(), w[:, :12], b),
+        (x.view(20, 64), w[:12], b[:12]),
+        (x.half(), w, b),
+    ]
+    for x_, w_, b_ in refused:
+        with pytest.raises(ValueError, match="fused dense product takes bf16"):
+            layers.dense(x_, w_.contiguous(), b_.contiguous())
+    assert dense_fwd.launches == fused + 2
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dense_fwd(misaligned, w.bfloat16(), b)
+
+
+def test_fused_dense_without_a_gradient_is_the_functions_output(gen):
+    """Where no gradient is kept, `dense` calls the product without the autograd Function:
+    the same bits, no graph; with one, a [3, 100, K] input gives a [3, 100, K] dx."""
+    x = torch.randn((3, 100, 768), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((3072, 768), generator=gen, device="cuda") * 768 ** -0.5
+    b = torch.randn((3072,), generator=gen, device="cuda")
+    with torch.inference_mode():
+        plain = layers.dense(x, w, b)
+    assert plain.grad_fn is None and plain.shape == (3, 100, 3072)
+    xg = x.clone().requires_grad_(True)
+    kept = layers.dense(xg, w, b)
+    assert kept.grad_fn is not None and torch.equal(plain, kept)
+    kept.backward(torch.ones_like(kept))
+    assert xg.grad.shape == x.shape and xg.grad.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("size", [18, 0])
