@@ -5,9 +5,9 @@ arXiv:2309.16588), a frozen visual encoder served through `R3MEncoder`.
 state dict loads as it is (its training-only ``embeddings.mask_token`` is accepted and
 dropped). The forward follows HF's: the patch convolution; CLS; the position table,
 resized to the request's grid by HF's rule (f32 bicubic with antialiasing to an explicit
-size, kept as it is where the grid is the table's own and the image square), once a grid
-(`Dinov2.positions`); the register tokens after CLS, once positions are added; pre-LN
-layers whose attention and SwiGLU branches (``silu(x1) * x2`` over the two halves of
+size, kept as it is where the grid is the table's own and the image square) in every
+forward (`Dinov2.positions`); the register tokens after CLS, once positions are added;
+pre-LN layers whose attention and SwiGLU branches (``silu(x1) * x2`` over the two halves of
 ``weights_in``) are each scaled per channel by their LayerScale before the residual add;
 the final LayerNorm and the CLS row, the ``[B, dim]`` embedding.
 
@@ -76,11 +76,6 @@ class Dinov2(nn.Module):
     """HF ``Dinov2WithRegistersModel`` layout. Fresh weights: products N(0, 0.02) with
     zero biases, CLS, registers and positions N(0, 0.02), LayerScale 1, from torch's
     global generator.
-
-    `positions` keeps one resized table a grid and counts each resize it computes in
-    `position_resizes`; the tables follow the position table's identity, version and
-    address, as `R3MEncoder`'s weight check follows the weights, and are made anew after
-    any change to it.
     """
 
     def __init__(self, cfg: Dinov2Config = G14_REG):
@@ -114,34 +109,14 @@ class Dinov2(nn.Module):
         self.encoder = _node(layer=nn.ModuleList(layers))
         self.layernorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.register_load_state_dict_pre_hook(_drop_mask_token)
-        self.position_resizes = 0
-        self._tables = {}
-        self._tables_src = None
 
     @property
     def out_dim(self) -> int:
         return self.cfg.dim
 
     def positions(self, grid_h: int, grid_w: int, square: bool) -> torch.Tensor:
-        """`resize_positions` of the position table, made once a grid. Where the table
-        takes a gradient (training) it is computed afresh in every call."""
-        table = self.embeddings.position_embeddings
-        if torch.is_grad_enabled() and table.requires_grad:
-            self.position_resizes += 1
-            return resize_positions(table, grid_h, grid_w, square)
-        src = (table, table._version, table.data_ptr())
-        old = self._tables_src
-        if old is None or old[0] is not table or old[1:] != src[1:]:
-            self._tables, self._tables_src = {}, src
-        key = (grid_h, grid_w, square)
-        out = self._tables.get(key)
-        if out is None:
-            # a plain tensor, so that it serves inside and outside inference mode alike
-            with torch.inference_mode(False), torch.no_grad():
-                out = resize_positions(table, grid_h, grid_w, square)
-            self._tables[key] = out
-            self.position_resizes += 1
-        return out
+        """`resize_positions` of the position table, computed afresh in every call."""
+        return resize_positions(self.embeddings.position_embeddings, grid_h, grid_w, square)
 
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         """NCHW normalized images -> the ``[B, dim]`` f32 CLS embedding.

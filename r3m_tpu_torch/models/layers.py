@@ -31,51 +31,32 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.to(torch.float32), b.to(torch.float32))
 
 
-class _DenseLowPrecision(torch.autograd.Function):
-    """``x2 @ weight.T`` for a bf16 ``x2 [M, K]`` and an f32 ``weight [N, K]``: the
-    weight is cast to x2's dtype, and the product has an f32 result.
-
-    The backward computes both products the same way, with the f32 output gradient cast
-    to x2's dtype first (it holds values of that dtype: the forward's output is cast down
-    after the bias): dx comes back in x2's dtype, and the weight's gradient in f32 from
-    the f32-result GEMM.
-    """
-
-    @staticmethod
-    def forward(ctx, x2, weight):
-        w = weight.to(x2.dtype)
-        ctx.save_for_backward(x2, w)
-        return _mm_f32(x2, w.t())
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        g = g.to(x2.dtype)
-        dx = _mm_f32(g, w).to(x2.dtype) if ctx.needs_input_grad[0] else None
-        dw = _mm_f32(g.t(), x2) if ctx.needs_input_grad[1] else None
-        return dx, dw
+def _fused_operands(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor):
+    """The fused product's operands: x's rows as the GEMM reads them (`gemm_rows`), the
+    weight as a contiguous copy in x's dtype, the bias in f32."""
+    return (gemm_rows(x.reshape(-1, x.shape[-1])),
+            weight.to(x.dtype, memory_format=torch.contiguous_format),
+            bias.to(torch.float32))
 
 
 class _DenseFused(torch.autograd.Function):
-    """``round(x @ weight.T + bias)`` for a bf16 ``x [..., K]`` on the card, the f32
+    """``round(x @ weight.T + bias)`` for a bf16 ``x [..., K]``, the f32
     ``weight [N, K]`` cast to bf16 and the f32 ``bias [N]``, in one GEMM whose epilogue adds
     the bias to the f32 accumulator and rounds once (`r3m_tpu_torch.ops.dense`). The rows
     are flattened inside, so that no view adds a node to the autograd graph.
 
     The output gradient arrives in bf16. dx comes from the same GEMM without a bias (f32
     accumulation, one rounding), the weight's gradient in f32 from the f32-result GEMM, and
-    the bias's as the f32 sum of the gradient's rows: the numbers of `_DenseLowPrecision`
-    with the epilogue's autograd, but for the order of their sums.
+    the bias's as the f32 sum of the gradient's rows. For CPU tensors `dense_fwd` and
+    `dense_dx` compute their plain versions, and nothing is launched.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias):
-        lead = x.shape[:-1]
-        x2 = gemm_rows(x.reshape(-1, x.shape[-1]))
-        w = weight.to(x.dtype, memory_format=torch.contiguous_format)
+        x2, w, b = _fused_operands(x, weight, bias)
         ctx.save_for_backward(x2, w)
-        ctx.lead = lead
-        return dense_fwd(x2, w, bias.to(torch.float32), lead)
+        ctx.lead = x.shape[:-1]
+        return dense_fwd(x2, w, b, ctx.lead)
 
     @staticmethod
     def backward(ctx, g):
@@ -94,30 +75,22 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Te
     result, plus the f32 bias, and only then the rounding to x.dtype.
 
     In bf16 that order matters: rounding the product, or the bias, before the add gives
-    other numbers. Differentiable in x, weight and bias. The input decides the route:
+    other numbers. Differentiable in x, weight and bias. The dtype decides the route:
 
-    - f32 anywhere: the f32 product, then the bias (the span ``r3m.dense.epilogue``);
-    - any other dtype on the card: the fused route (the span ``r3m.dense.fused``), the bias
-      added and the one rounding made inside the GEMM, `dense_fwd` counting its launches.
-      A view whose rows the GEMM cannot read in place is copied first (`gemm_rows`); a
-      dtype other than bf16, or K or N not a multiple of 8, raises a ValueError. With a
-      gradient to keep it runs as `_DenseFused`, else as one `dense_fwd` call;
-    - bf16 on the CPU: the unfused order, the product with an f32 result, then the f32
-      bias add and the cast back in passes of their own (``r3m.dense.epilogue``).
+    - f32: the f32 product, then the bias (the span ``r3m.dense.epilogue``);
+    - any other dtype: the fused route (the span ``r3m.dense.fused``). On the card the GEMM
+      adds the bias and rounds once, `dense_fwd` counting its launches; on the CPU the same
+      order runs as plain products. A view whose rows the GEMM cannot read in place is
+      copied first (`gemm_rows`); on the card a dtype other than bf16, or K or N not a
+      multiple of 8, raises a ValueError. With a gradient to keep it runs as
+      `_DenseFused`, else as one `dense_fwd` call.
     """
-    if x.dtype == torch.float32:
-        out = torch.matmul(x, weight.t())
-    elif x.is_cuda:
+    if x.dtype != torch.float32:
         with span(DENSE_FUSED):
             if torch.is_grad_enabled() and (
                     x.requires_grad or weight.requires_grad or bias.requires_grad):
                 return _DenseFused.apply(x, weight, bias)
-            return dense_fwd(gemm_rows(x.reshape(-1, x.shape[-1])),
-                             weight.to(x.dtype, memory_format=torch.contiguous_format),
-                             bias.to(torch.float32), x.shape[:-1])
-    else:
-        x2 = x.reshape(-1, x.shape[-1])
-        out = _DenseLowPrecision.apply(x2, weight)
-        out = out.reshape(*x.shape[:-1], weight.shape[0])
+            return dense_fwd(*_fused_operands(x, weight, bias), x.shape[:-1])
+    out = torch.matmul(x, weight.t())
     with span(DENSE_EPILOGUE):
         return (out + bias.to(torch.float32)).to(x.dtype)

@@ -156,8 +156,7 @@ class ResNet(nn.Module):
                 return _bn_train_synced(y, bn, bn_group)
 
         def conv_bn(y, conv, bn, stride, padding):
-            y = F.conv2d(y, conv.weight.to(y.dtype), None, stride, padding)
-            return bn_fn(y, bn)
+            return bn_fn(_conv_in(y, conv, stride, padding), bn)
 
         y = F.relu(conv_bn(x, self.conv1, self.bn1, 2, 3))
         y = _pool(y)
@@ -237,7 +236,8 @@ class _Moments(torch.autograd.Function):
 def _batch_moments(y: torch.Tensor, bn: nn.BatchNorm2d, group) -> Tuple[torch.Tensor, ...]:
     """The batch mean and biased variance of `y` over (N, H, W) — and over every rank of
     `group` — as JAX computes them (``E[y²] - E[y]²`` in f32); the running statistics are
-    updated with them, once."""
+    updated with them, once. Every rank holds as many rows, so the global count is the
+    local one times the world size."""
     from r3m_tpu_torch.parallel.collectives import all_reduce_sum
 
     c = y.shape[1]
@@ -338,30 +338,11 @@ def _bn_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
 
 def _bn_train_synced(y: torch.Tensor, bn: nn.BatchNorm2d, group) -> torch.Tensor:
-    """Train BatchNorm over the rows of every rank of `group`, the JAX
-    ``batch_norm(train=True)`` of the global batch (``resnet.py:100-130``): each rank sums
-    its rows and their squares over (N, H, W) in f32, one all-reduce adds the sums, and
-    mean = sum / n, variance = sumsq / n - mean^2, as JAX computes them; normalised with
-    the biased variance, the running variance updated with the unbiased one over the
-    global count, momentum 0.1, eps 1e-5; output in y.dtype.
-
-    Every rank holds as many rows (the gather of the embeddings needs it too), so the
-    global count is the local one times the world size, exact on the host. The gradient
-    flows through the autograd all-reduce (`all_reduce_sum`).
-    """
-    from r3m_tpu_torch.parallel.collectives import all_reduce_sum
-
-    c = y.shape[1]
-    n = y.numel() // c * dist.get_world_size(group)
-    dims = (0, 2, 3)
+    """Train BatchNorm over the rows of every rank of `group` (``resnet.py:100-130``): the
+    batch moments of `_batch_moments`, all-reduced over `group`, then `_normalize`, both on
+    one f32 copy of y, so that the two parts of dx are added in f32 and rounded once."""
     yf = y.to(torch.float32)
-    sums = all_reduce_sum(torch.cat([yf.sum(dim=dims), (yf * yf).sum(dim=dims)]), group)
-    mean = sums[:c] / n
-    var = sums[c:] / n - mean * mean
-    _update_running_stats(bn, mean, var, n)
-    inv = torch.rsqrt(var + BN_EPS) * bn.weight.float()
-    shift = bn.bias.float() - mean * inv
-    return torch.addcmul(shift[:, None, None], yf, inv[:, None, None]).to(y.dtype)
+    return _normalize(yf, *_batch_moments(yf, bn, group), bn.weight, bn.bias).to(y.dtype)
 
 
 def _bn_eval(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:

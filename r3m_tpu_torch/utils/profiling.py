@@ -31,10 +31,11 @@ it is a shared null context, and costs one attribute read. The program's spans, 
   batch moved to its device, or into a CUDA graph's input buffer) and either
   ``r3m.encoder.embed`` (each part's eager forward) or ``r3m.encoder.replay`` (the replay
   of the forward's CUDA graph, `r3m_tpu_torch.models.graphs`).
-- ``r3m.dense.epilogue``: the f32 bias add and the cast back of `dense` (the ViT's and
-  DINOv2's) where it runs unfused: in f32, and in bf16 on the CPU.
-- ``r3m.dense.fused``: one forward call of `dense` on the fused route (bf16 on the card:
-  the weight's cast and the GEMM that adds the bias and rounds once).
+- ``r3m.dense.epilogue``: the f32 bias add and the cast back of an f32 `dense` (the ViT's
+  and DINOv2's).
+- ``r3m.dense.fused``: one forward call of a bf16 `dense`, on every device: the weight's
+  cast and the product that adds the bias and rounds once (the GEMM on the card, its plain
+  version on the CPU).
 - ``r3m.swiglu.gate``: DINOv2's ``silu(x1) * x2`` pass over the halves of ``weights_in``.
 - ``r3m.layerscale``: each of DINOv2's LayerScale products with its residual add.
 - ``r3m.workspace.input_wait``: the workspace's train loop waiting for its next batch on

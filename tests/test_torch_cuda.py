@@ -568,14 +568,16 @@ def test_fused_dense_is_within_one_bf16_step_of_the_unfused_order(gen, n, k):
 
 def _dense_grads(route, x, w, b, g):
     """dx, dw and db of `dense` at (x, w, b) for the output gradient g, by `route`: the
-    fused Function, or the unfused order's Function and epilogue."""
-    x, w, b = (t.clone().requires_grad_(True) for t in (x, w, b))
+    fused Function, or the unfused order's gradients written out: dx and dw as bf16
+    GEMMs with f32 results (dx then rounded once), db the f32 sum of g's rows. An f32 GEMM
+    of the same bf16 values sums in another order than the bf16 ones, which near a
+    cancellation is many bf16 steps at the result's own magnitude."""
     if route == "fused":
-        out = layers._DenseFused.apply(x, w, b)
-    else:
-        out = (layers._DenseLowPrecision.apply(x, w) + b).to(x.dtype)
-    out.backward(g)
-    return x.grad, w.grad, b.grad
+        x, w, b = (t.clone().requires_grad_(True) for t in (x, w, b))
+        layers._DenseFused.apply(x, w, b).backward(g)
+        return x.grad, w.grad, b.grad
+    return (torch.mm(g, w.bfloat16(), out_dtype=torch.float32).bfloat16(),
+            torch.mm(g.t(), x, out_dtype=torch.float32), g.float().sum(dim=0))
 
 
 @pytest.mark.parametrize("values", ["integers", "normal"])

@@ -1,10 +1,10 @@
-"""`dense`'s routes on the CPU: bf16 on the CPU keeps the unfused order bit for bit (the
-product with an f32 result, the f32 bias add, the cast back); the fused route's wrappers
-compute their plain versions for CPU tensors, so the fused Function's backward (dx
-from the bias-free product, dw from the f32-result product, db as the f32 sum of the bf16
-gradient) is held here to the unfused order's autograd; no CPU tensor takes the fused route.
-`gemm_rows`, which copies a view the products cannot read in place, is plain PyTorch. The
-card's own tests are in ``tests/test_torch_cuda.py``."""
+"""`dense`'s bf16 route on the CPU: the fused route's Function and wrappers, whose products
+compute their plain versions for CPU tensors and launch nothing, so bf16 on the CPU is the
+unfused order bit for bit (the product with an f32 result, the f32 bias add, the cast
+back). The fused Function's backward (dx from the bias-free product, dw from the
+f32-result product, db as the f32 sum of the bf16 gradient) is held here to the JAX order
+written in plain autograd. `gemm_rows`, which copies a view the products cannot read in
+place, is plain PyTorch. The card's own tests are in ``tests/test_torch_cuda.py``."""
 
 from __future__ import annotations
 
@@ -41,16 +41,19 @@ def test_bf16_dense_on_the_cpu_is_the_unfused_order(values):
     assert torch.equal(dense_reference(x, w.bfloat16(), b), want)
 
 
-def test_the_fused_route_takes_no_cpu_tensor():
-    """bf16 on the CPU runs the unfused order and launches nothing, also at a K the fused
-    product would refuse."""
-    x, w, b, _ = _operands("normal")
-    before = dense_fwd.launches
-    layers.dense(x, w, b)
+def test_the_fused_route_on_the_cpu_launches_nothing():
+    """bf16 on the CPU runs the fused Function with its products' plain versions and
+    launches nothing, also at a K the card's product would refuse."""
+    x, w, b, g = _operands("normal")
+    before = dense_fwd.launches, dense_dx.launches
+    x_ = x.clone().requires_grad_(True)
+    out = layers.dense(x_, w, b)
+    assert type(out.grad_fn).__name__ == "_DenseFusedBackward"
+    out.backward(g)
     odd = x[:, :12]
     want = (torch.mm(odd.float(), w[:, :12].bfloat16().float().t()) + b).bfloat16()
     assert torch.equal(layers.dense(odd, w[:, :12].contiguous(), b), want)
-    assert dense_fwd.launches == before
+    assert (dense_fwd.launches, dense_dx.launches) == before
 
 
 def test_gemm_rows_copies_only_what_the_products_cannot_read():
@@ -76,12 +79,17 @@ def test_dense_dx_on_the_cpu_rounds_the_f32_product_once():
     assert torch.equal(dense_dx_reference(g, w.bfloat16()), want)
 
 
-def _grads(function, x, w, b, g):
-    x, w, b = (t.clone().requires_grad_(True) for t in (x, w, b))
-    if function is layers._DenseFused:
-        out = function.apply(x, w, b)
+def _grads(route, x, w, b, g):
+    """dx, dw and db at (x, w, b) for the output gradient g, by `route`: the fused Function,
+    or the JAX order in plain autograd, the bf16-cast weight an f32 leaf so that dw stays
+    in f32."""
+    x, b = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    if route == "fused":
+        w = w.clone().requires_grad_(True)
+        out = layers._DenseFused.apply(x, w, b)
     else:
-        out = (function.apply(x, w) + b).to(x.dtype)
+        w = w.bfloat16().float().requires_grad_(True)
+        out = (x.float() @ w.t() + b).bfloat16()
     assert out.dtype == torch.bfloat16
     out.backward(g)
     return x.grad, w.grad, b.grad
@@ -92,8 +100,8 @@ def test_fused_function_gradients_are_the_unfused_orders(values):
     """Bit-equal on integers; on normal operands within one bf16 step, since db sums the
     same bf16 values in f32 in another order."""
     x, w, b, g = _operands(values)
-    got = _grads(layers._DenseFused, x, w, b, g)
-    want = _grads(layers._DenseLowPrecision, x, w, b, g)
+    got = _grads("fused", x, w, b, g)
+    want = _grads("jax", x, w, b, g)
     for a, e, dtype in zip(got, want, (torch.bfloat16, torch.float32, torch.float32)):
         assert a.dtype == e.dtype == dtype and a.shape == e.shape
         if values == "integers":
@@ -106,7 +114,7 @@ def test_fused_function_keeps_the_leading_dimensions():
     """The Function flattens the rows inside: a [3, 4, K] input gives a [3, 4, N] output
     and a [3, 4, K] dx, the numbers of the flat call."""
     x, w, b, g = _operands("integers")
-    flat = _grads(layers._DenseFused, x, w, b, g)
+    flat = _grads("fused", x, w, b, g)
     x3 = x.view(3, 4, -1).clone().requires_grad_(True)
     w_, b_ = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
     out = layers._DenseFused.apply(x3, w_, b_)
@@ -120,8 +128,8 @@ def test_fused_function_keeps_the_leading_dimensions():
 def test_fused_function_backward_takes_a_strided_gradient():
     x, w, b, g = _operands("normal")
     wide = torch.cat([g, g], dim=1)[:, ::2]  # a gradient whose rows are not contiguous
-    got = _grads(layers._DenseFused, x, w, b, wide)
-    want = _grads(layers._DenseFused, x, w, b, wide.contiguous())
+    got = _grads("fused", x, w, b, wide)
+    want = _grads("fused", x, w, b, wide.contiguous())
     assert all(torch.equal(a, e) for a, e in zip(got, want))
 
 

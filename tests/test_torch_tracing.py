@@ -1,7 +1,7 @@
 """The port's spans (`r3m_tpu_torch.utils.profiling.span`) on the CPU: absent, and free of
 work, with no profiler recording; under ``torch.profiler``, the train step's six phases
 partition the step, the serving encoder shows its check, copy and forward, and the ViT's
-``dense`` one epilogue a call; and what the program computes is the same bit for bit with
+``dense`` one span a call (its epilogue in f32, its fused route in bf16); and what the program computes is the same bit for bit with
 the profiler on or off. Small shapes: ResNet-18 and ViT-B/32 at 64 px, a DistilBERT of
 one narrow layer, 4 clips of 5 frames. Nothing is written to disk."""
 
@@ -150,18 +150,20 @@ def test_the_encoder_shows_its_check_copy_and_forward(size, precision):
         assert _inside(children[name], whole), name
     check = children[profiling.ENCODER_CHECK]
     assert not [e for e in events if e[0].startswith("aten::") and _inside(e, check)]
-    epilogues = _named(events, profiling.DENSE_EPILOGUE)
+    assert not _named(events, profiling.DENSE_EPILOGUE)
+    fused = _named(events, profiling.DENSE_FUSED)
     if size == 0:  # q, k, v, the attention's output, the MLP's two a layer, the pooler
         layers = len(enc.convnet.encoder.layer)
-        assert len(epilogues) == 6 * layers + 1
+        assert len(fused) == 6 * layers + 1
         embed = children[profiling.ENCODER_EMBED]
-        assert all(_inside(e, embed) for e in epilogues)
+        assert all(_inside(e, embed) for e in fused)
     else:
-        assert not epilogues
+        assert not fused
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dense_shows_one_epilogue_a_call(dtype):
+def test_dense_shows_one_span_a_call(dtype):
+    """f32 opens the epilogue's span, bf16 the fused route's, on the CPU as on the card."""
     from r3m_tpu_torch.models.layers import dense
 
     g = torch.Generator().manual_seed(3)
@@ -170,10 +172,13 @@ def test_dense_shows_one_epilogue_a_call(dtype):
     want = [dense(x, w, b) for _ in range(3)]
     got, events = _profiled(lambda: [dense(x, w, b) for _ in range(3)])
     assert all(torch.equal(a, c) for a, c in zip(want, got))
-    epilogues = _named(events, profiling.DENSE_EPILOGUE)
-    assert len(epilogues) == 3
+    name, other = ((profiling.DENSE_EPILOGUE, profiling.DENSE_FUSED)
+                   if dtype == torch.float32 else
+                   (profiling.DENSE_FUSED, profiling.DENSE_EPILOGUE))
+    spans = _named(events, name)
+    assert len(spans) == 3 and not _named(events, other)
     adds = [e for e in events if e[0] == "aten::add"]
-    assert adds and all(any(_inside(a, e) for e in epilogues) for a in adds)
+    assert adds and all(any(_inside(a, e) for e in spans) for a in adds)
 
 
 def test_spans_are_host_ops():
