@@ -17,8 +17,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
 2. build every kernel of ``r3m_tpu_torch/csrc`` from the checkout's sources, and print
    what ``-Xptxas -v`` says of the maxpool, the bf16 and the f32 attention kernels
    (registers, shared memory, spills); the maxpool and f32 attention kernels, the bf16
-   backward's one-block form past 128 tokens and the dense GEMMs must neither spill nor
-   use a stack frame;
+   backward's one-block form past 128 tokens, the dense GEMMs and the layer_norm kernels
+   must neither spill nor use a stack frame;
 3. each kernel against its plain PyTorch version on the card, at the shapes the serving
    and training paths give it, f32 and bf16, with the times of the kernel, the plain
    version and one library call, and the bound:
@@ -34,12 +34,18 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    (`attention_head_blocks_per_sm`); the fused `dense` product (`check_dense`) against
    the unfused order at ViT-B/32's and DINOv2-g/14's widths (dx at ViT's training rows),
    within one bf16 step, timed beside the f32-result product, with cuBLASLt's answer on an
-   f32 bias with a bf16 output; under grad a CUDA call carries
+   f32 bias with a bf16 output; `layer_norm`'s kernels (`check_layer_norm`) against the
+   composition at DINOv2-g/14's request, ViT-B/32's request and its training step (the
+   backward there), timed beside ATen's ``F.layer_norm`` with bf16 parameters, with what
+   ATen does with f32 parameters and a bf16 x; under grad a CUDA call carries
    a grad_fn and its backward is the kernel; each row also gives the kernel's time over
    the library call's (`library_ratio`), the bound over the kernel's time
    (`bound_share`) and the bytes the function must move over the kernel's time
    (`gbytes_per_s`);
-4. ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
+4. one fast request of 8 frames to DINOv2-g/14 with registers (``serve_dinov2_g14``,
+   seeded random weights drawn on the card): `layer_norm`'s forward 81 launches (two a
+   layer and the final one on the class token's rows), the fused `dense` 240, K3 40.
+   Then ResNet-50 serving through ``load_r3m_from_files`` (seeded random weights written as a
    reference ``model.pt``), parity and fast: a few requests of 256 frames at 224 px and
    one of 240x320 frames; shapes, finiteness, fast-vs-parity cosine, agreement with the
    CPU path on a small input, and K1's launches over the served requests. Then
@@ -52,8 +58,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
    ``model.pt`` through the embed CLI over 130 PNG files of 240x320 (batches of 64 and a
    tail of 2), parity and fast: frames/s of the whole CLI, the paths in order, K1 once a
    batch, parity against `R3MEncoder` on the same decoded arrays (cosine > 0.9999);
-5. ViT-B/32 serving, the same, with K3's launches and the fused `dense` product's (73 a
-   fast request, none in parity), and its fast-vs-parity cosine again
+5. ViT-B/32 serving, the same, with K3's launches, the fused `dense` product's (73 a
+   fast request, none in parity) and `layer_norm`'s (25 a request in either precision),
+   and its fast-vs-parity cosine again
    with the fast forward's attention through K3's plain version on the card (K3's share
    of the bf16 path's distance from parity); then ViT-B/32 at 384 px (T = 145), one
    request of 64 frames; then mesh serving: ``load_r3m_from_files(...,
@@ -70,14 +77,15 @@ Phases, in order; any failure ends the run with a non-zero exit and no result li
 7. snapshot and resume: that state saved with ``save_train_snapshot`` and loaded into a
    fresh state of another seed; the next step of both, crops and negatives fixed, gives
    the same loss, through K1 and K2; save and load seconds, the snapshot's bytes;
-8. the ViT-B/32 pretraining step, the same as 6, with 12 launches of K3 and of K4 a step
-   and 73 of the fused `dense` product and of its dx; then at 384 px, 16 clips, 3 timed steps, in bf16 (``train_vit_b32_384``) and in f32
+8. the ViT-B/32 pretraining step, the same as 6, with 12 launches of K3 and of K4 a step,
+   73 of the fused `dense` product and of its dx and 25 of `layer_norm`'s forward and of
+   its backward (in f32 too); then at 384 px, 16 clips, 3 timed steps, in bf16 (``train_vit_b32_384``) and in f32
    (``train_vit_b32_384_f32``: K3 and K4 in the f32 head form);
 9. the ViT-B/32 pretraining step in f32, the same but for 5 timed steps, with no TF32
    flag set by this script (the step runs in true f32 itself, as the 384 px f32 step of
    8 does): the f32 K3 and K4 at full width, 12 launches of each a step; then that state
    saved and served through ``load_r3m_from_snapshot`` in fast precision, against the
-   live model in parity (K3 12 times, the fused `dense` 73);
+   live model in parity (K3 12 times, the fused `dense` 73, `layer_norm` 25);
 10. reward scoring (`R3MRewardModel`): the ResNet-50 state of 6 saved as an ``.npz`` with a
    base-geometry DistilBERT (``distilbert.npz`` with ``bert_config`` metadata, the training
    phases' frozen encoder) and a vocab, scored in parity and fast precision: 32 (start,
@@ -673,15 +681,167 @@ def check_dense(gen) -> dict:
     return rows
 
 
+# `layer_norm` at the shapes of its bf16 callers: DINOv2-g/14's request of 256 frames
+# (T = 261), ViT-B/32's request of 256 frames and its training step's 320 (T = 50).
+LN_SHAPES = {
+    "dinov2_serve": (SERVE_BATCH * T_DINOV2, 1536),
+    "vit_serve": (SERVE_BATCH * 50, 768),
+    "vit_train": (TRAIN_BATCH * 50, 768),
+}
+LN_EPS = 1e-6
+LN_COLD_BYTES = 160e6  # copies of x a timing cycles through, so that L2 (50 MB) holds none
+# `layer_norm` calls: two a layer and the final one (DINOv2's on the class token's rows)
+LN_PER_VIT_FORWARD = 12 * 2 + 1
+LN_PER_DINOV2_REQUEST = 40 * 2 + 1
+DINOV2_DENSE_PER_REQUEST = 40 * 6
+DINOV2_FRAMES = 8
+
+
+def cold_ms(fn, *tensors) -> float:
+    """`time_ms` of ``fn(*copy)`` over copies of `tensors` taken in turn, as many as make
+    `LN_COLD_BYTES`: each call reads its operands from device memory, not from L2."""
+    copies = [[t.clone() for t in tensors]
+              for _ in range(max(1, int(LN_COLD_BYTES // nbytes(*tensors)) + 1))]
+    turn = iter(range(1 << 62))
+    return time_ms(lambda: fn(*copies[next(turn) % len(copies)]))
+
+
+def aten_layer_norm_f32_params() -> str:
+    """What ATen's CUDA ``layer_norm`` does with f32 weight and bias and a bf16 x: rows of
+    +2 and -2 (xhat exactly +1 and -1), weight 256, bias 1 + 2**-10, so that xhat * 256 +
+    bias is 257.0009765625: 258 in bf16 where the bias stays f32, the tie 257 (256) where it
+    is rounded to bf16 first."""
+    x = torch.tensor([2.0, -2.0] * 32, device="cuda").repeat(4, 1).bfloat16()
+    w = torch.full((64,), 256.0, device="cuda")
+    b = torch.full((64,), 1 + 2 ** -10, device="cuda")
+    try:
+        y = F.layer_norm(x, (64,), w, b, 1e-12)
+    except RuntimeError as e:
+        return f"raises: {str(e).splitlines()[0][:160]}"
+    bf16_params = F.layer_norm(x, (64,), w.bfloat16(), b.bfloat16(), 1e-12)
+    return (f"runs: output {y.dtype}, y[0, 0] = {y[0, 0].item()} (bf16 parameters: "
+            f"{bf16_params[0, 0].item()})")
+
+
+def check_layer_norm(gen) -> dict:
+    """`layer_norm`'s kernels (``r3m_tpu_torch/ops/layer_norm.py``) against their plain
+    versions at `LN_SHAPES`, bf16: the forward's time, its bound (x read and y written once
+    at 3.35 TB/s), the plain composition's time and ATen's ``F.layer_norm`` with the weight
+    and bias cast to bf16 (the library's nearest call, which rounds them first), and its
+    largest difference in bf16 steps, which must stay within one where y is not within f32
+    rounding of zero (there within 2e-5 of (|x| + |mean|) * rstd * |w| + |b|); at the training shape
+    the same for the backward (dx within one bf16 step off near-zero values, dw and db to
+    f32 rounding); and what ATen does with f32 parameters and a bf16 x. Each timed call
+    reads operands that L2 does not hold."""
+    from r3m_tpu_torch.ops.dense import bf16_steps
+    from r3m_tpu_torch.ops.layer_norm import (layer_norm_bwd, layer_norm_bwd_reference,
+                                              layer_norm_fwd, layer_norm_reference)
+
+    rows = {"aten_f32_params_with_bf16_x": aten_layer_norm_f32_params()}
+    log(f"layer_norm: ATen's CUDA layer_norm with f32 weight and bias and a bf16 x "
+        f"{rows['aten_f32_params_with_bf16_x']}")
+    for name, (r, d) in LN_SHAPES.items():
+        x = (torch.randn((r, d), generator=gen, device="cuda") * 3 + 0.5).bfloat16()
+        w = torch.randn((d,), generator=gen, device="cuda") * 0.5 + 1
+        b = torch.randn((d,), generator=gen, device="cuda") * 0.1
+        wl, bl = w.bfloat16(), b.bfloat16()
+        y, mean, rstd = layer_norm_fwd(x, w, b, LN_EPS)
+        want, want_mean, want_rstd = layer_norm_reference(x, w, b, LN_EPS)
+        # the magnitude of y's operands, (|x| + |mean|) * rstd * |w| + |b|: where y is under
+        # 1e-3 of it, the statistics' f32 rounding is several bf16 steps of y, and y is held
+        # to 2e-5 of it instead
+        terms = ((x.float().abs() + want_mean.abs()[:, None]) * want_rstd[:, None] * w.abs()
+                 + b.abs())
+        off_zero = want.float().abs() > 1e-3 * terms
+        bound, _ = bound_ms(nbytes(x, y, w, b), 0, torch.bfloat16)
+        row = {"shape": [r, d], "ms": cold_ms(lambda x_: layer_norm_fwd(x_, w, b, LN_EPS), x),
+               "bound_ms": bound, "bound_by": "bytes",
+               "plain_ms": cold_ms(lambda x_: layer_norm_reference(x_, w, b, LN_EPS), x),
+               "library_ms": cold_ms(lambda x_: F.layer_norm(x_, (d,), wl, bl, LN_EPS), x),
+               "max_bf16_steps_off_zero": bf16_steps(y[off_zero], want[off_zero]),
+               "near_zero_max_err_over_terms": torch.cat([
+                   ((y.float() - want.float()).abs() / terms)[~off_zero],
+                   terms.new_zeros(1)]).max().item()}
+        row.update(bound_share=bound / row["ms"], library_ratio=row["ms"] / row["library_ms"],
+                   plain_over_kernel=row["plain_ms"] / row["ms"])
+        steps = row["max_bf16_steps_off_zero"]
+        if row["near_zero_max_err_over_terms"] > 2e-5:
+            raise AssertionError(f"layer_norm {name}: y off the composition: {row}")
+        del terms, off_zero
+        if name == "vit_train":
+            g = torch.randn((r, d), generator=gen, device="cuda").bfloat16()
+            dx, dw, db = layer_norm_bwd(g, x, mean, rstd, w)
+            dx_, dw_, db_ = layer_norm_bwd_reference(g, x, want_mean, want_rstd, w)
+            term = ((g.float() * w).abs().max() * rstd.max()).item()
+            off_zero = dx_.float().abs() > 1e-4 * term
+            _, m_, s_ = torch.ops.aten.native_layer_norm(x, [d], wl, bl, LN_EPS)
+            bwd_bound, _ = bound_ms(nbytes(x, g, dx, w, dw, db), 0, torch.bfloat16)
+            row.update(
+                bwd_ms=cold_ms(lambda g_, x_: layer_norm_bwd(g_, x_, mean, rstd, w), g, x),
+                bwd_bound_ms=bwd_bound,
+                bwd_plain_ms=cold_ms(
+                    lambda g_, x_: layer_norm_bwd_reference(g_, x_, mean, rstd, w), g, x),
+                bwd_library_ms=cold_ms(
+                    lambda g_, x_: torch.ops.aten.native_layer_norm_backward(
+                        g_, x_, [d], m_, s_, wl, bl, [True, True, True]), g, x),
+                dx_max_bf16_steps_off_zero=bf16_steps(dx[off_zero], dx_[off_zero]),
+                dx_max_abs_err=(dx.float() - dx_.float()).abs().max().item(),
+                dw_max_abs_err=(dw - dw_).abs().max().item(),
+                db_max_abs_err=(db - db_).abs().max().item(),
+                dw_abs_max=dw_.abs().max().item(), db_abs_max=db_.abs().max().item())
+            row.update(bwd_bound_share=bwd_bound / row["bwd_ms"],
+                       bwd_library_ratio=row["bwd_ms"] / row["bwd_library_ms"])
+            steps = max(steps, row["dx_max_bf16_steps_off_zero"])
+            if not ((dw - dw_).abs().max() <= 1e-4 * dw_.abs().max()
+                    and (db - db_).abs().max() <= 1e-4 * db_.abs().max()):
+                raise AssertionError(f"layer_norm {name}: dw or db off the plain sums: {row}")
+            del g, dx, dw, db, dx_, dw_, db_, off_zero, m_, s_
+        rows[name] = row
+        log(f"layer_norm {name}: {json.dumps(row)}")
+        if steps > 1.0:
+            raise AssertionError(f"layer_norm {name}: {steps} bf16 steps from the plain version")
+        del x, y, want, mean, rstd, want_mean, want_rstd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dinov2_request() -> dict:
+    """One fast request of `DINOV2_FRAMES` frames to DINOv2-g/14 with registers (seeded
+    random weights drawn on the card): `layer_norm` launches its forward 81 times (two a
+    layer and the final one on the class token's rows), the fused `dense` 240, K3 40."""
+    from r3m_tpu_torch.models import dinov2
+    from r3m_tpu_torch.models.r3m import R3MConfig, R3MEncoder
+
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        enc = R3MEncoder(R3MConfig(size=dinov2.NAME, langweight=0.0), precision="fast")
+    frames = np.random.default_rng(SEED).integers(0, 256, (DINOV2_FRAMES, 3, 224, 224),
+                                                  dtype=np.uint8)
+    reset_counts()
+    out = enc(frames)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = counts(K3=40, D=DINOV2_DENSE_PER_REQUEST, LN=LN_PER_DINOV2_REQUEST)
+    result = {"launches": launches, "frames": DINOV2_FRAMES, "shape": list(out.shape)}
+    log(f"serve_dinov2_g14 request: {json.dumps(result)}")
+    if launches != want or not torch.isfinite(out).all():
+        raise AssertionError(f"serve_dinov2_g14: launches {launches}, expected {want}, or "
+                             f"non-finite embeddings")
+    del enc, out
+    torch.cuda.empty_cache()
+    return result
+
+
 def counters():
     from r3m_tpu_torch.ops.attention import fused_attention_bwd, fused_attention_fwd
     from r3m_tpu_torch.ops.pool import maxpool_3x3s2_bwd, maxpool_3x3s2_fwd
 
     from r3m_tpu_torch.ops.dense import dense_dx, dense_fwd
+    from r3m_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 
     return {"K1": maxpool_3x3s2_fwd, "K2": maxpool_3x3s2_bwd,
             "K3": fused_attention_fwd, "K4": fused_attention_bwd,
-            "D": dense_fwd, "Ddx": dense_dx}
+            "D": dense_fwd, "Ddx": dense_dx, "LN": layer_norm_fwd, "LNbwd": layer_norm_bwd}
 
 
 def counts(**given) -> dict:
@@ -711,11 +871,13 @@ def cosine_rows(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
 
 def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
           min_cosine: float, tmp: str, batch: int = SERVE_BATCH,
-          requests: int = SERVE_REQUESTS, hw: int = 224, dense: int = 0) -> dict:
+          requests: int = SERVE_REQUESTS, hw: int = 224, dense: int = 0,
+          ln: int = 0) -> dict:
     """Serve `requests` of `batch` frames of `hw` px (and one of 64 240x320 frames)
     through load_r3m_from_files; return the launches and frames/s. `min_cosine` bounds
     fast against parity, row by row. The fused `dense` product must launch `dense` times a
-    fast (bf16) request, and never in parity (f32)."""
+    fast (bf16) request, and never in parity (f32); `layer_norm`'s forward `ln` times a
+    request in either precision."""
     import r3m_tpu_torch
 
     path = os.path.join(tmp, f"{name}.pt")
@@ -726,9 +888,10 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
     odd = rng.integers(0, 256, (64, 3, 240, 320), dtype=np.uint8)
 
     reset_counts()
-    out, fps, by_precision, dense_by_precision = {}, {}, {}, {}
+    out, fps, by_precision, dense_by_precision, ln_by_precision = {}, {}, {}, {}, {}
     for precision in ("parity", "fast"):
         before, dense_before = read_counts()[kernel], read_counts()["D"]
+        ln_before = read_counts()["LN"]
         enc = r3m_tpu_torch.load_r3m_from_files(path, precision=precision)
         first = enc(frames[0])  # warms cuDNN's algorithm choice
         torch.cuda.synchronize()
@@ -746,6 +909,7 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
         out[precision] = (first, e_odd)
         by_precision[precision] = read_counts()[kernel] - before
         dense_by_precision[precision] = read_counts()["D"] - dense_before
+        ln_by_precision[precision] = read_counts()["LN"] - ln_before
         del enc
     launches = read_counts()
     if not all(by_precision.values()):
@@ -755,6 +919,10 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
     if dense_by_precision != want:
         raise AssertionError(f"{name}: the fused dense product launched {dense_by_precision} "
                              f"times, expected {want}")
+    want = {p: ln * (len(frames) + 2) for p in ("parity", "fast")}
+    if ln_by_precision != want:
+        raise AssertionError(f"{name}: layer_norm launched {ln_by_precision} times, "
+                             f"expected {want}")
 
     cos = min(cosine_rows(out["fast"][i], out["parity"][i]).min() for i in (0, 1))
     if not cos >= min_cosine:
@@ -774,6 +942,7 @@ def serve(name: str, convnet: torch.nn.Module, out_dim: int, kernel: str,
         "launches": launches,
         f"{kernel}_launches_by_precision": by_precision,
         "D_launches_by_precision": dense_by_precision,
+        "LN_launches_by_precision": ln_by_precision,
         "requests": 2 * (1 + len(frames) + 1),
         "frames_per_s_parity": fps["parity"],
         "frames_per_s_fast": fps["fast"],
@@ -1032,10 +1201,12 @@ def train(name: str, size: int, bert, gen, dtype: str = "bfloat16",
         raise AssertionError(f"{name} train: non-finite loss {losses}")
     if state.step != steps:
         raise AssertionError(f"{name} train: step {state.step} after {steps} steps")
-    # bf16 ViT: every `dense` (six a layer and the pooler) on the fused route, dx too
+    # bf16 ViT: every `dense` (six a layer and the pooler) on the fused route, dx too;
+    # `layer_norm` in both dtypes, once a direction a call
     dense = DENSE_PER_VIT_FORWARD * steps if dtype == "bfloat16" else 0
+    ln = LN_PER_VIT_FORWARD * steps
     want = (counts(K1=steps, K2=steps) if size else
-            counts(K3=12 * steps, K4=12 * steps, D=dense, Ddx=dense))
+            counts(K3=12 * steps, K4=12 * steps, D=dense, Ddx=dense, LN=ln, LNbwd=ln))
     if launches != want:
         raise AssertionError(f"{name} train: launches {launches}, expected {want}")
     if size and not all(not torch.equal(v, stats0[k]) for k, v in state.batch_stats.items()):
@@ -1140,9 +1311,10 @@ def snapshot_serve(name: str, kept) -> dict:
     log(f"{name} snapshot serve: {json.dumps(result)}")
     if not (got.shape == want.shape and torch.isfinite(got).all() and cos >= 0.9995):
         raise AssertionError(f"{name}: served snapshot cosine {cos} < 0.9995")
-    if launches["K3"] != 12 or launches["D"] != DENSE_PER_VIT_FORWARD:
-        raise AssertionError(f"{name} snapshot serve: launches {launches}, expected K3 = 12 "
-                             f"and D = {DENSE_PER_VIT_FORWARD}")
+    if (launches["K3"] != 12 or launches["D"] != DENSE_PER_VIT_FORWARD
+            or launches["LN"] != LN_PER_VIT_FORWARD):
+        raise AssertionError(f"{name} snapshot serve: launches {launches}, expected K3 = 12, "
+                             f"D = {DENSE_PER_VIT_FORWARD} and LN = {LN_PER_VIT_FORWARD}")
     return result
 
 
@@ -2175,6 +2347,10 @@ def main() -> int:
     log("ptxas, the dense GEMMs:\n" + "\n".join(line[:160] for line in report))
     if not report or spills(report):
         raise AssertionError(f"the dense GEMMs: ptxas reports {spills(report)}")
+    ln_ptxas = ptxas_report(built["layer_norm"][1], ("layer_norm",))
+    log("ptxas, the layer_norm kernels:\n" + "\n".join(ln_ptxas))
+    if not ln_ptxas or spills(ln_ptxas):
+        raise AssertionError(f"the layer_norm kernels: ptxas reports {spills(ln_ptxas)}")
     parent = None
     if args.parent_attention:
         parent = load_parent_attention(os.path.abspath(args.parent_attention))
@@ -2185,6 +2361,7 @@ def main() -> int:
     k1_rows, k2_rows = check_pool(gen)
     k3_rows, k4_rows = check_attention(gen, parent)
     dense_rows = check_dense(gen)
+    ln_rows = check_layer_norm(gen)
     clock("kernel checks")
 
     torch.manual_seed(SEED)
@@ -2196,7 +2373,8 @@ def main() -> int:
                 m.bias.uniform_(-0.1, 0.1)
                 m.running_mean.uniform_(-0.1, 0.1)
                 m.running_var.uniform_(0.5, 1.5)
-    paths = {}
+    paths = {"serve_dinov2_g14": dinov2_request()}
+    clock("serve_dinov2_g14")
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve_resnet50"] = serve("resnet50", resnet, 2048, "K1", 0.9999, tmp)
         clock("serve_resnet50")
@@ -2210,14 +2388,15 @@ def main() -> int:
         # fast paths land at cosine ~0.9999 against parity on the CPU, so the bound is
         # looser than the ResNet's.
         paths["serve_vit_b32"] = serve("vit_b32", ViT(), 768, "K3", 0.9995, tmp,
-                                       dense=DENSE_PER_VIT_FORWARD)
+                                       dense=DENSE_PER_VIT_FORWARD, ln=LN_PER_VIT_FORWARD)
         paths["serve_vit_b32"]["fast_cosine_split"] = fast_cosine_split(
             os.path.join(tmp, "vit_b32.pt"))
         clock("serve_vit_b32")
         # ViT-B/32 at 384 px: T = 145, K3 in its head form (bf16 fast, f32 parity)
         paths["serve_vit_b32_384"] = serve(
             "vit_b32_384", ViT(dataclasses.replace(B32, image_size=384)), 768, "K3", 0.9995,
-            tmp, batch=SERVE_384_BATCH, requests=1, hw=384, dense=DENSE_PER_VIT_FORWARD)
+            tmp, batch=SERVE_384_BATCH, requests=1, hw=384, dense=DENSE_PER_VIT_FORWARD,
+            ln=LN_PER_VIT_FORWARD)
         clock("serve_vit_b32_384")
         if parent is not None:
             paths["serve_vit_b32_384"]["against_parent"] = serve_against_parent(
@@ -2312,6 +2491,13 @@ def main() -> int:
         kernels.append({"name": name, "route": "cutlass", "source": "r3m_tpu_torch/csrc/dense.cu",
                         "replaces": None, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, "rows": dense_rows})
+    # layer_norm's kernels (ViT and DINOv2), which replace no TPU kernel
+    for key, name in (("LN", "layer_norm_fwd"), ("LNbwd", "layer_norm_bwd")):
+        by_path = {p: r["launches"][key] for p, r in paths.items() if r["launches"][key]}
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "r3m_tpu_torch/csrc/layer_norm.cu", "replaces": None,
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
+                        "rows": ln_rows, "ptxas": ln_ptxas})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: no path launched it")

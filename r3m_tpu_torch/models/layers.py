@@ -1,8 +1,8 @@
 """LayerNorm and Dense for the ViT backbone, the port of ``r3m_tpu/models/layers.py``.
 
-Statistics in f32 whatever the compute dtype; parameters live in f32 and are cast to the
-activation dtype on use; products accumulate in f32. Weights use torch's ``nn.Linear``
-layout, ``[out, in]``.
+Statistics in f32 whatever the compute dtype; parameters live in f32: LayerNorm applies
+them in f32, ``dense`` casts its weight to the activation dtype on use; products
+accumulate in f32. Weights use torch's ``nn.Linear`` layout, ``[out, in]``.
 """
 
 from __future__ import annotations
@@ -10,16 +10,55 @@ from __future__ import annotations
 import torch
 
 from r3m_tpu_torch.ops.dense import dense_dx, dense_fwd, gemm_rows
-from r3m_tpu_torch.utils.profiling import DENSE_EPILOGUE, DENSE_FUSED, span
+from r3m_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd, norm_rows
+from r3m_tpu_torch.utils.profiling import DENSE_EPILOGUE, DENSE_FUSED, LAYER_NORM, span
+
+
+class _LayerNorm(torch.autograd.Function):
+    """LayerNorm of ``x [..., D]`` over its last axis with the f32 ``weight`` and ``bias``
+    ``[D]`` (`r3m_tpu_torch.ops.layer_norm`): the rows are flattened inside, so that no view
+    adds a node to the autograd graph, and only x's rows and each row's f32 mean and rstd
+    are kept for the backward. The output gradient arrives in x's dtype; dx comes back in
+    it, rounded once, dw and db in f32. For CPU tensors `layer_norm_fwd` and
+    `layer_norm_bwd` compute their plain versions, and nothing is launched.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        x2 = norm_rows(x.reshape(-1, x.shape[-1]))
+        y, mean, rstd = layer_norm_fwd(x2, weight, bias, eps, x.shape[:-1])
+        ctx.save_for_backward(x2, mean, rstd, weight)
+        ctx.lead = x.shape[:-1]
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, mean, rstd, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(g.reshape(-1, g.shape[-1]).contiguous(), x2, mean, rstd,
+                                    weight)
+        return (dx.reshape(*ctx.lead, dx.shape[-1]) if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None,
+                db if ctx.needs_input_grad[2] else None, None)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-    """LayerNorm over the last axis; f32 statistics, output in x.dtype."""
-    xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps) * weight + bias
-    return y.to(x.dtype)
+    """LayerNorm over the last axis as the JAX ``layer_norm`` computes it: f32 statistics
+    (the mean, then the mean of the squared deviations), ``(x - mean) * rstd * weight +
+    bias`` in f32 with the f32 parameters, one rounding to x.dtype.
+
+    One route on every device, under the span ``r3m.layer_norm``: on the card one kernel a
+    direction (`layer_norm_fwd` and `layer_norm_bwd` count their launches), on the CPU the
+    same Function with the plain composition. A view whose rows the kernel cannot read in
+    place is copied first (`norm_rows`); on the card a dtype other than f32 or bf16, or a D
+    the kernel cannot hold, raises a ValueError. With a gradient to keep it runs as
+    `_LayerNorm`, else as one `layer_norm_fwd` call.
+    """
+    with span(LAYER_NORM):
+        if torch.is_grad_enabled() and (
+                x.requires_grad or weight.requires_grad or bias.requires_grad):
+            return _LayerNorm.apply(x, weight, bias, eps)
+        return layer_norm_fwd(norm_rows(x.reshape(-1, x.shape[-1])), weight, bias, eps,
+                              x.shape[:-1])[0]
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,9 @@ it is a shared null context, and costs one attribute read. The program's spans, 
 - ``r3m.dense.fused``: one forward call of a bf16 `dense`, on every device: the weight's
   cast and the product that adds the bias and rounds once (the GEMM on the card, its plain
   version on the CPU).
+- ``r3m.layer_norm``: one forward call of `layer_norm` (ViT's and DINOv2's), on every
+  device: the kernel on the card, the plain composition on the CPU. Its backward runs on
+  the autograd engine's thread, outside the span.
 - ``r3m.swiglu.gate``: DINOv2's ``silu(x1) * x2`` pass over the halves of ``weights_in``.
 - ``r3m.layerscale``: each of DINOv2's LayerScale products with its residual add.
 - ``r3m.workspace.input_wait``: the workspace's train loop waiting for its next batch on
@@ -69,13 +72,14 @@ ENCODER_EMBED = "r3m.encoder.embed"
 ENCODER_REPLAY = "r3m.encoder.replay"
 DENSE_EPILOGUE = "r3m.dense.epilogue"
 DENSE_FUSED = "r3m.dense.fused"
+LAYER_NORM = "r3m.layer_norm"
 SWIGLU_GATE = "r3m.swiglu.gate"
 LAYERSCALE = "r3m.layerscale"
 WORKSPACE_INPUT_WAIT = "r3m.workspace.input_wait"
 STEP_PHASES = (STEP_AUGMENT, STEP_LANGUAGE, STEP_ENCODE, STEP_LOSS, STEP_BACKWARD,
                STEP_OPTIMIZER)
 SPANS = (STEP, *STEP_PHASES, ENCODER, ENCODER_CHECK, ENCODER_H2D, ENCODER_EMBED,
-         ENCODER_REPLAY, DENSE_EPILOGUE, DENSE_FUSED, SWIGLU_GATE, LAYERSCALE,
+         ENCODER_REPLAY, DENSE_EPILOGUE, DENSE_FUSED, LAYER_NORM, SWIGLU_GATE, LAYERSCALE,
          WORKSPACE_INPUT_WAIT)
 
 _OFF = contextlib.nullcontext()

@@ -31,6 +31,12 @@ from r3m_tpu_torch.ops.attention import (
     fused_attention_reference,
 )
 from r3m_tpu_torch.ops.dense import bf16_steps, dense_dx, dense_fwd, gemm_rows
+from r3m_tpu_torch.ops.layer_norm import (
+    layer_norm_bwd,
+    layer_norm_bwd_reference,
+    layer_norm_fwd,
+    layer_norm_reference,
+)
 from r3m_tpu_torch.ops.pool import (
     maxpool_3x3s2,
     maxpool_3x3s2_bwd,
@@ -650,6 +656,178 @@ def test_fused_dense_without_a_gradient_is_the_functions_output(gen):
     assert kept.grad_fn is not None and torch.equal(plain, kept)
     kept.backward(torch.ones_like(kept))
     assert xg.grad.shape == x.shape and xg.grad.dtype == torch.bfloat16
+
+
+# `layer_norm`'s kernels at ViT-B/32's and DINOv2-g/14's widths (one warp a row; in f32 at
+# 1536 two warps a row), a narrow width (several rows a warp), widths off the 16-byte
+# vector path (one element a load, with a tail) and at the widest the kernels hold. 4,000
+# rows: more than the backward's resident blocks take in one pass, so they walk the rows.
+LN_WIDTHS = [768, 1536, 16, 100, 33, 8192]
+LN_ROWS = 4000
+
+
+def _ln_inputs(gen, shape, dtype):
+    d = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 0.5).to(dtype)
+    w = torch.randn((d,), generator=gen, device="cuda") * 0.5 + 1
+    b = torch.randn((d,), generator=gen, device="cuda") * 0.1
+    return x, w, b
+
+
+def _assert_ln_out(y, want, x, w, b):
+    """The kernel's y against the composition's, which sums the statistics in another
+    order: f32 within 2e-6 of the largest output; bf16 within one bf16 step, but where y is
+    under 1e-3 of the magnitude of its operands, (|x| + |mean|) * rstd * |w| + |b| (there
+    an f32 difference of the statistics is several bf16 steps of y: within 2e-5 of it)."""
+    assert y.dtype == x.dtype and y.shape == want.shape
+    if x.dtype == torch.float32:
+        assert (y - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+        return
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    terms = (xf.abs() + mu.abs()) / xf.std(-1, unbiased=False, keepdim=True) * w.abs() + b.abs()
+    off_zero = want.float().abs() > 1e-3 * terms
+    assert bf16_steps(y[off_zero], want[off_zero]) <= 1.0
+    near = ~off_zero
+    assert ((y.float() - want.float())[near].abs() <= 2e-5 * terms[near]).all()
+
+
+def _assert_ln_grads(got, want, g, x, w):
+    """The kernels' dx, dw and db against the plain backward's, which sums in another
+    order: within f32 rounding of the largest term, and a bf16 dx within one bf16 step but
+    where dx is under 1e-4 of that term (a bf16 step is there finer than the f32 sums that
+    make dx: there within 2e-5 of it)."""
+    (dx, dw, db), (dx_, dw_, db_) = got, want
+    assert dx.dtype == x.dtype and dw.dtype == db.dtype == torch.float32
+    gf, xf = g.float(), x.float()
+    xhat = (xf - xf.mean(-1, keepdim=True)) / xf.std(-1, unbiased=False, keepdim=True)
+    term = ((gf * w).abs().max() / xf.std(-1, unbiased=False).min()).item()
+    f32 = 1e-5
+    assert (dw - dw_).abs().max().item() <= f32 * (gf * xhat).abs().sum(0).max().item()
+    assert (db - db_).abs().max().item() <= f32 * gf.abs().sum(0).max().item()
+    if x.dtype == torch.float32:
+        assert (dx - dx_).abs().max().item() <= f32 * term
+    else:
+        near_zero = dx_.float().abs() <= 10 * f32 * term
+        assert bf16_steps(dx[~near_zero], dx_[~near_zero]) <= 1.0
+        assert ((dx.float() - dx_.float())[near_zero].abs() <= 2 * f32 * term).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", LN_WIDTHS)
+def test_layer_norm_kernels_match_their_plain_versions(gen, dtype, d):
+    """The forward against the composition (`_assert_ln_out`), its mean and rstd to f32
+    rounding; dx, dw and db against the plain
+    backward; each direction one launch a call; two runs bit-equal."""
+    if dtype == torch.float32 and d == 8192:
+        d = 4096  # f32's widest: 1,024 vectors of 4
+    x, w, b = _ln_inputs(gen, (LN_ROWS, d), dtype)
+    g = torch.randn((LN_ROWS, d), generator=gen, device="cuda").to(dtype)
+    fwd, bwd = layer_norm_fwd.launches, layer_norm_bwd.launches
+    y, mean, rstd = layer_norm_fwd(x, w, b, 1e-6)
+    grads = layer_norm_bwd(g, x, mean, rstd, w)
+    assert (layer_norm_fwd.launches, layer_norm_bwd.launches) == (fwd + 1, bwd + 1)
+    want, want_mean, want_rstd = layer_norm_reference(x, w, b, 1e-6)
+    _assert_ln_out(y, want, x, w, b)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    _assert_ln_grads(grads, layer_norm_bwd_reference(g, x, want_mean, want_rstd, w), g, x, w)
+    again = layer_norm_fwd(x, w, b, 1e-6)
+    assert all(torch.equal(a, c) for a, c in zip(again, (y, mean, rstd)))
+    assert all(torch.equal(a, c) for a, c in zip(layer_norm_bwd(g, x, mean, rstd, w), grads))
+
+
+def test_layer_norm_weight_and_bias_stay_f32_in_bf16(gen):
+    """Rows of +2 and -2: the mean is 0, the variance 4 and rstd 0.5, all exact, so xhat is
+    +1 and -1 and xhat * 256 + (1 + 2**-10) is 257.0009765625, which rounds up to 258 in
+    bf16, and -254.9990234375, which rounds to -255. A bias rounded to bf16 first (1) gives
+    the tie 257 instead, which rounds to the even 256."""
+    x = torch.tensor([2.0, -2.0] * 32, device="cuda").repeat(4, 1).bfloat16()
+    w = torch.full((64,), 256.0, device="cuda")
+    b = torch.full((64,), 1 + 2 ** -10, device="cuda")
+    y = layers.layer_norm(x, w, b, 1e-12)
+    assert torch.equal(y, layer_norm_reference(x, w, b, 1e-12)[0])
+    assert (y[:, 0::2] == 258).all() and (y[:, 1::2] == -255).all()
+    rounded, _, _ = layer_norm_reference(x, w, b.bfloat16().float(), 1e-12)
+    assert (rounded[:, 0::2] == 256).all()
+
+
+def test_layer_norm_through_autograd_keeps_shapes_views_and_counts(gen):
+    """`layers.layer_norm` on the card: a [3, 100, 768] input through the Function (dx of
+    its shape, one launch a direction) against autograd of the composition; the class
+    token's rows read in place; no graph and one launch without a gradient to keep."""
+    x, w, b = _ln_inputs(gen, (3, 100, 768), torch.bfloat16)
+    g = torch.randn((3, 100, 768), generator=gen, device="cuda").bfloat16()
+    xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+    fwd, bwd = layer_norm_fwd.launches, layer_norm_bwd.launches
+    y = layers.layer_norm(xg, wg, bg, 1e-6)
+    y.backward(g)
+    assert (layer_norm_fwd.launches, layer_norm_bwd.launches) == (fwd + 1, bwd + 1)
+    assert y.shape == x.shape and xg.grad.shape == x.shape
+    x2, g2 = x.view(-1, 768), g.view(-1, 768)
+    _, mean, rstd = layer_norm_reference(x2, w, b, 1e-6)
+    _assert_ln_grads((xg.grad.view(-1, 768), wg.grad, bg.grad),
+                     layer_norm_bwd_reference(g2, x2, mean, rstd, w), g2, x2, w)
+    cls = x[:, 0]
+    with torch.inference_mode():
+        plain = layers.layer_norm(cls, w, b, 1e-6)
+    assert plain.grad_fn is None and layer_norm_fwd.launches == fwd + 2
+    assert torch.equal(plain, layers.layer_norm(cls.contiguous(), w, b, 1e-6))
+    misaligned = torch.randn((20, 776), generator=gen, device="cuda").bfloat16()[:, 1:769]
+    want, _, _ = layer_norm_reference(misaligned, w, b, 1e-6)
+    _assert_ln_out(layers.layer_norm(misaligned, w, b, 1e-6), want, misaligned, w, b)
+
+
+def test_layer_norm_refuses_what_the_kernels_cannot_take(gen):
+    """A dtype other than f32 and bf16, and rows wider than the kernels hold (past 1,024
+    16-byte vectors, or 1,024 elements off the vector path), raise a ValueError."""
+    w, b = torch.ones(8200, device="cuda"), torch.zeros(8200, device="cuda")
+    before = layer_norm_fwd.launches
+    for x in (torch.zeros((4, 8200), device="cuda", dtype=torch.bfloat16),
+              torch.zeros((4, 1030), device="cuda", dtype=torch.bfloat16),
+              torch.zeros((4, 4104), device="cuda")):
+        d = x.shape[1]
+        with pytest.raises(ValueError, match="wider than the kernel holds"):
+            layers.layer_norm(x, w[:d], b[:d], 1e-6)
+    with pytest.raises(ValueError, match="takes f32 or bf16 rows"):
+        layers.layer_norm(torch.zeros((4, 64), device="cuda").half(), w[:64], b[:64], 1e-6)
+    with pytest.raises(ValueError, match="takes f32 or bf16 rows"):
+        layers.layer_norm(torch.zeros((4, 64), device="cuda"), w[:64].bfloat16(), b[:64],
+                          1e-6)
+    assert layer_norm_fwd.launches == before
+
+
+def test_layer_norm_launches_a_forward_and_a_step(gen):
+    """25 forward launches a ViT-B/32 forward (two a layer and the final one), in either
+    precision; 2 x layers + 1 a DINOv2 request (the final one on the class token's rows);
+    a bf16 ViT step 25 of each direction."""
+    torch.manual_seed(0)
+    cfg = R3MConfig(size=0, image_size=64)
+    obs = np.random.default_rng(0).integers(0, 256, (2, 3, 64, 64), dtype=np.uint8)
+    for precision in ("parity", "fast"):
+        enc = R3MEncoder(cfg, precision=precision)
+        before = layer_norm_fwd.launches
+        enc(obs)
+        assert layer_norm_fwd.launches - before == 25
+    sd = Dinov2(DINOV2_TINY).state_dict()
+    before = layer_norm_fwd.launches
+    R3MEncoder(R3MConfig(size=DINOV2_NAME, image_size=196), sd, precision="fast")(
+        np.zeros((2, 3, 196, 196), dtype=np.uint8))
+    assert layer_norm_fwd.launches - before == 2 * DINOV2_TINY.n_layers + 1
+    cfg = R3MConfig(size=0, hidden_dim=64, langweight=1.0, image_size=64,
+                    compute_dtype="bfloat16")
+    bert = DistilBert(DistilBertConfig(vocab_size=100, n_layers=1, n_heads=4, hidden_dim=128,
+                                       max_position_embeddings=16))
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.integers(0, 256, (4, 5, 64, 64, 3), np.uint8),
+             "token_ids": rng.integers(0, 100, (4, 12)),
+             "attn_mask": np.ones((4, 12), np.int64), "lang_mask": np.ones(4, np.float32)}
+    state = create_train_state(cfg, 0)
+    step = make_train_step(cfg, bert, doaug="rctraj")
+    fwd, bwd = layer_norm_fwd.launches, layer_norm_bwd.launches
+    step(state, batch)
+    torch.cuda.synchronize()
+    assert (layer_norm_fwd.launches - fwd, layer_norm_bwd.launches - bwd) == (25, 25)
 
 
 @pytest.mark.parametrize("size", [18, 0])
